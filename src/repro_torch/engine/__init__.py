@@ -1,0 +1,5 @@
+"""The day loop and its placement: ``EngineCore.single(...).run1(days)``."""
+
+from repro_torch.engine.core import EngineCore, hist_to_numpy  # noqa: F401
+from repro_torch.engine.day import EngineStatic, day_step, run_days  # noqa: F401
+from repro_torch.engine.topology import LocalTopology  # noqa: F401

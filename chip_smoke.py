@@ -6,18 +6,29 @@
 Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
   1. device — the card's name and power limit; no CUDA device is an error;
-  2. build  — nvcc builds every kernel of the main path from the checkout's
-     sources and prints ptxas's registers / shared memory / spills;
+  2. build  — nvcc builds the interaction kernels (one source, four
+     instantiations) from the checkout's sources and prints ptxas's
+     registers / shared memory / spills for each;
   3. kernels against their plain versions at md-mini day shapes (b=128) in
      three states (early, mid-epidemic, everyone infectious and
-     susceptible): bitwise equality, times (CUDA events), the bound;
+     susceptible), with a tracing-source vector on ~1% of the infectious
+     visits: each of the four kernels bitwise equal to its plain version,
+     padded bitwise equal to compacted, times (CUDA events), the bound;
   4. the main path — EngineCore.single on md-mini, covid, seed 0, 200 days
      under torch.use_deterministic_algorithms(True), the day loop under
      torch.cuda.set_sync_debug_mode("error"): one kernel launch per day,
      edges == contacts every day, a monotone cumulative count above the
-     seeds, and a bitwise-identical second run;
-  5. reference — twin-2k, 30 days, on the card against the plain path on the
-     CPU: the same trajectory up to float ulps in exp/log.
+     seeds, and a bitwise-identical second run; then the same run on the
+     "pallas" backend, bitwise equal, through the padded kernel;
+  4b. where a day's time goes (torch.profiler over one week);
+  4c. the TTI path — the same run with the "tti" preset on each backend:
+     one launch per day of that backend's traced kernel, edges == contacts,
+     the test budget kept, tests/isolation/tracing all used, the backends'
+     histories and final states bitwise equal, a bitwise-identical second
+     run of each; ms/day and traversed edges/s; a profiled TTI week;
+  5. reference — twin-2k on the card against the plain path on the CPU, 30
+     days untraced and 25 days under test-trace-isolate: the same
+     trajectory up to float ulps in exp/log.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -51,7 +63,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12 / 2
 PEAK_INT32_OPS_PER_S = 67e12 / 4
 PEAK_ISSUE_PER_S = 67e12 / 2
-# The least work the function needs (csrc/interactions_compact.cu), as
+# The least work the function needs (csrc/interactions.cu), as
 # (integer, float) operations. Every pair of a live tile pays the validity
 # test: pid >= 0, same loc, different pid (integer) and the overlap's min,
 # max, subtract and > 0 (float). Only a valid pair pays the rest: min/max of
@@ -61,10 +73,25 @@ PEAK_ISSUE_PER_S = 67e12 / 2
 # convert/multiply/add (3), the compare with p (1), rho's three products
 # and sum (4) and inf > 0 (1) in floats. The inner hash of a word that is
 # one visit's id (pid twice, loc) is per visit (3 x 9), the day's hash
-# prefix is per day.
+# prefix is per day. The traced arity adds the src > 0 test and the count
+# (2 integer operations) per valid pair.
 OPS_PER_PAIR = (3, 4)
 OPS_PER_VALID_PAIR = (34, 9)
+OPS_PER_TRACED_VALID_PAIR = (2, 0)
 OPS_PER_VISIT = (27, 0)
+# The four instantiations: wrapper name in kernel.py, backend, traced?,
+# the Pallas kernel each replaces.
+KERNELS = {
+    "interactions_compact": ("interactions_compact_cuda", "pallas-compact", False,
+                             "src/repro/kernels/interactions/kernel.py:205"),
+    "interactions_compact_traced": ("interactions_compact_traced_cuda", "pallas-compact",
+                                    True, "src/repro/kernels/interactions/kernel.py:205"),
+    "interactions_padded": ("interactions_padded_cuda", "pallas", False,
+                            "src/repro/kernels/interactions/kernel.py:66"),
+    "interactions_padded_traced": ("interactions_padded_traced_cuda", "pallas", True,
+                                   "src/repro/kernels/interactions/kernel.py:66"),
+}
+TTI_TESTS_PER_DAY = 100  # the "tti" preset's budget
 
 
 def log(msg: str) -> None:
@@ -96,7 +123,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 def visit_inputs(core, person_sus, person_inf, dow, ops):
     """The interaction pass's inputs for one weekday and person channels,
-    as the day step builds them (no interventions)."""
+    as the day step builds them (no interventions), in the wrappers'
+    argument order."""
     w = {k: v[dow] for k, v in core.week.items()}
     pid = w["pid"]
     active = pid >= 0
@@ -106,18 +134,19 @@ def visit_inputs(core, person_sus, person_inf, dow, ops):
     nb = pid.shape[0] // BLOCK
     meta = torch.stack([core.params.seed, torch.full_like(core.params.seed, dow)])
     return (eff, w["loc"], w["start"], w["end"], w["p"], sus_v, inf_v,
-            w["row"], w["col"], w["pa"],
+            w["row"], w["col"], w["rs"], w["pa"],
             ops.col_has_infectious(inf_v, eff, nb, BLOCK),
             ops.row_has_susceptible(sus_v, eff, nb, BLOCK), meta)
 
 
-def pair_counts(kargs, n_live: int):
-    """(pairs, valid pairs) in the live tiles: the data-dependent work."""
-    pid, loc, start, end = kargs[:4]
-    rows, cols = kargs[7][:n_live].long(), kargs[8][:n_live].long()
+def pair_counts(args, rows, cols):
+    """(pairs, valid pairs) in the live tiles ``rows``/``cols``: the
+    data-dependent work."""
+    pid, loc, start, end = args[:4]
+    rows, cols = rows.long(), cols.long()
     blk = lambda a, idx: a.view(-1, BLOCK)[idx]
     valid = 0
-    for s in range(0, n_live, 256):
+    for s in range(0, rows.shape[0], 256):
         r, c = rows[s:s + 256], cols[s:s + 256]
         pr, pc = blk(pid, r)[:, :, None], blk(pid, c)[:, None, :]
         ov = (torch.minimum(blk(end, r)[:, :, None], blk(end, c)[:, None, :])
@@ -125,32 +154,33 @@ def pair_counts(kargs, n_live: int):
         v = ((pr >= 0) & (pc >= 0) & (pr != pc) & (ov > 0)
              & (blk(loc, r)[:, :, None] == blk(loc, c)[:, None, :]))
         valid += int(v.sum())
-    return n_live * BLOCK * BLOCK, valid
+    return rows.shape[0] * BLOCK * BLOCK, valid
 
 
-def bound(kargs, outs, n_live: int):
+def bound(inputs, outs, pairs: int, valid: int, traced: bool):
     """Least time the card could take: inputs read once and outputs written
     once at peak bandwidth, against this data's operations at peak rate.
     The INT32 and FP32 lanes run side by side, so the operations take the
     longest of integers at the INT32 rate, floats at the FP32 rate and both
     at the issue rate."""
-    nbytes = sum(a.numel() * a.element_size() for a in kargs)
+    nbytes = sum(a.numel() * a.element_size() for a in inputs)
     nbytes += sum(o.numel() * o.element_size() for o in outs)
-    pairs, valid = pair_counts(kargs, n_live)
-    visits = kargs[0].numel()
+    per_valid = [a + (b if traced else 0)
+                 for a, b in zip(OPS_PER_VALID_PAIR, OPS_PER_TRACED_VALID_PAIR)]
+    visits = inputs[0].numel()
     n_int, n_float = (pairs * a + valid * b + visits * c for a, b, c in
-                      zip(OPS_PER_PAIR, OPS_PER_VALID_PAIR, OPS_PER_VISIT))
+                      zip(OPS_PER_PAIR, per_valid, OPS_PER_VISIT))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 1e3 * max(n_int / PEAK_INT32_OPS_PER_S, n_float / PEAK_FP32_OPS_PER_S,
                       (n_int + n_float) / PEAK_ISSUE_PER_S)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, pairs, valid, n_int, n_float
+    return max(t_bytes, t_ops), by, n_int, n_float
 
 
-def profile_days(core, state, card: str) -> None:
-    """torch.profiler over one week of the main path from ``state``: device
-    busy time per day, the idle share of the span the kernels cover, and
-    device time by kernel."""
+def profile_days(core, state, card: str, label: str) -> None:
+    """torch.profiler over one week of ``core``'s run from ``state``: device
+    busy time per day, the idle share of the span the kernels cover, device
+    operations per day and device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -162,8 +192,8 @@ def profile_days(core, state, card: str) -> None:
     wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        log("[profile] torch.profiler recorded no device events: device time "
-            "not measured")
+        log(f"[profile:{label}] torch.profiler recorded no device events: device "
+            "time not measured")
         return
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
@@ -171,17 +201,61 @@ def profile_days(core, state, card: str) -> None:
     for e in dev:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    kern = [v for k, v in by_name.items() if "interactions_compact_kernel" in k]
-    k_n, k_ms = kern[0] if kern else (0, 0.0)
-    log(f"[profile] days {PROFILE_FROM}-{PROFILE_FROM + 6} (profiler on): "
+    kern = [v for k, v in by_name.items() if "interactions_kernel" in k]
+    k_n, k_ms = sum(v[0] for v in kern), sum(v[1] for v in kern)
+    sorts = [v for k, v in by_name.items() if "sort" in k.lower()]
+    s_n, s_ms = sum(v[0] for v in sorts), sum(v[1] for v in sorts)
+    day0 = int(state.day)
+    log(f"[profile:{label}] days {day0}-{day0 + 6} (profiler on): "
         f"wall {wall_ms / 7:.3f} ms/day, device busy {busy / 7:.3f} ms/day over a "
         f"kernel span of {span / 7:.3f} ms/day, idle share "
         f"{1.0 - busy / span:.4f}; {len(dev) / 7:.1f} device ops/day; "
-        f"interactions_compact_kernel {k_n} launches, {k_ms / 7:.4f} ms/day "
-        f"({k_ms / busy:.4f} of device time); {card}")
+        f"interactions_kernel {k_n} launches, {k_ms / 7:.4f} ms/day "
+        f"({k_ms / busy:.4f} of device time); sort kernels {s_n / 7:.1f}/day, "
+        f"{s_ms / 7:.4f} ms/day; {card}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, ms) in top:
-        log(f"[profile]   {ms / 7:9.4f} ms/day  {n / 7:6.1f}/day  {name[:110]}")
+        log(f"[profile:{label}]   {ms / 7:9.4f} ms/day  {n / 7:6.1f}/day  {name[:110]}")
+
+
+def run_path(core, wrappers, days: int):
+    """Drive ``core`` for ``days`` days from its initial state with every
+    launch count set to 0 just before and read just after, the day loop
+    under sync-debug "error". Returns (final, hist, launches, seconds)."""
+    from repro_torch.engine import hist_to_numpy
+
+    state = core.init_state1()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        final, hist = core.run_days(days, state=state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    return final, hist_to_numpy(hist), launches, dt
+
+
+def same_run(a, b, what: str) -> None:
+    """Two (final, hist) pairs bitwise equal, or raise."""
+    (fa, ha), (fb, hb) = a, b
+    for k in ha:
+        if not np.array_equal(ha[k], hb[k]):
+            raise AssertionError(f"{what}: '{k}' history differs")
+    for f in ("health", "dwell", "cumulative", "vaccinated", "tested", "traced",
+              "isolated_until"):
+        if not torch.equal(getattr(fa, f), getattr(fb, f)):
+            raise AssertionError(f"{what}: final '{f}' differs")
+
+
+def expect_launches(launches: dict, kernel: str, days: int, what: str) -> None:
+    want = {k: days if k == kernel else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
 def main() -> int:
@@ -190,10 +264,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs import get_epidemic
+    from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
     from repro_torch.core import disease as disease_lib
+    from repro_torch.core import interventions as iv_lib
     from repro_torch.core import transmission as tx_lib
-    from repro_torch.engine import EngineCore, hist_to_numpy
+    from repro_torch.engine import EngineCore
     from repro_torch.kernels.interactions import kernel, ops
 
     card = card_line()
@@ -201,25 +276,28 @@ def main() -> int:
     log(f"[device] {card}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices={count}")
+    wrappers = {k: getattr(kernel, v[0]) for k, v in KERNELS.items()}
 
     # ---- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
     lib, ptxas = kernel.build()
     log(f"[build] {os.path.relpath(kernel.SOURCE, ROOT)} -> "
         f"{os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.2f} s")
+    inst = None
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        m = re.search(r"interactions_kernelILb([01])ELb([01])E", line)
+        if m and "entry function" in line:
+            inst = f"traced={m.group(1)} padded={m.group(2)}"
+        elif inst and ("registers" in line or "spill" in line):
+            log(f"[build] interactions_kernel<{inst}>: {line.strip()}")
 
-    # ---- phase 3: kernel against its plain version -------------------------
+    # ---- phase 3: kernels against their plain versions ----------------------
     epi = get_epidemic(DATASET)
     t0 = time.perf_counter()
     pop = epi.build()
     covid = disease_lib.covid_model()
-    core = EngineCore.single(
-        pop, covid, tx_lib.TransmissionModel(tau=epi.tau), seed=0,
-        block_size=BLOCK, device="cuda",
-    )
+    tm = tx_lib.TransmissionModel(tau=epi.tau)
+    core = EngineCore.single(pop, covid, tm, seed=0, block_size=BLOCK, device="cuda")
     torch.cuda.synchronize()
     log(f"[setup] {DATASET}: {pop.num_people} people, "
         f"{pop.num_locations} locations, V={core.week['pid'].shape[1]}, "
@@ -242,110 +320,173 @@ def main() -> int:
         states[label] = (tables[0][h] * beta_sus, tables[1][h] * beta_inf)
     states["all"] = (beta_sus, beta_inf)  # everyone infectious and susceptible
 
-    records = {}
+    records = {k: {} for k in KERNELS}
     for label, (ps, pi) in states.items():
         args = visit_inputs(core, ps, pi, 0, ops)
-        rc = ops.compact_schedule(*args[7:12])
-        kargs = args[:7] + rc + args[10:]
+        # Tracing sources: about 1% of the infectious visits, from numpy.
+        infectious = (args[6] > 0).cpu().numpy()
+        src = torch.as_tensor(
+            (infectious & (rs.random(infectious.shape[0]) < 0.01)).astype(np.float32),
+            device=dev)
+        rc = ops.compact_schedule(args[7], args[8], *args[10:13])
         n_live = int(rc[3][0])
-        out_k = kernel.interactions_compact_cuda(*kargs, block_size=BLOCK)
-        out_p = kernel.interactions_compact_plain(*kargs, block_size=BLOCK)
-        torch.cuda.synchronize()
-        for what, a, b in zip(("acc", "cnt", "edges"), out_k, out_p):
-            if not torch.equal(a, b):
-                raise AssertionError(f"[{label}] kernel {what} != plain {what}")
-        err = float((out_k[0] - out_p[0]).abs().max())
-        ms = cuda_ms(lambda: kernel.interactions_compact_cuda(*kargs, block_size=BLOCK), 50)
-        wrap_ms = cuda_ms(lambda: ops.interactions_compact_edges(*args, block_size=BLOCK), 50)
-        plain_ms = cuda_ms(lambda: kernel.interactions_compact_plain(*kargs, block_size=BLOCK), 3)
-        bound_ms, bound_by, pairs, valid, n_int, n_float = bound(kargs, out_k, n_live)
-        records[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by, max_abs_err=err)
-        log(f"[kernel:{label}] bitwise equal to plain; live_tiles={n_live} "
-            f"pairs={pairs} valid_pairs={valid} int_ops={n_int} "
-            f"float_ops={n_float} edges={int(out_k[2])} "
-            f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={bound_ms:.5f} ({bound_by}) max_abs_err={err}")
+        pairs, valid = pair_counts(args, rc[0][:n_live], rc[1][:n_live])
+        kargs = {"pallas-compact": args[:7] + rc + args[11:], "pallas": args}
+        plain = {"pallas-compact": kernel.interactions_compact_plain,
+                 "pallas": kernel.interactions_padded_plain}
+        outs = {}
+        for kname, (wname, backend, traced, _) in KERNELS.items():
+            ka = kargs[backend]
+            kw = dict(block_size=BLOCK, src_val=src) if traced else dict(block_size=BLOCK)
+            run_k = lambda: wrappers[kname](*ka, **kw)
+            run_p = lambda: plain[backend](*ka, **kw)
+            out_k, out_p = run_k(), run_p()
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(out_k, out_p)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"[{label}] {kname} output {i} != plain")
+            outs[kname] = out_k
+            err = float((out_k[0] - out_p[0]).abs().max())
+            ms = cuda_ms(run_k, 50)
+            plain_ms = cuda_ms(run_p, 3)
+            inputs = list(ka) + ([src] if traced else [])
+            bound_ms, bound_by, n_int, n_float = bound(inputs, out_k, pairs, valid, traced)
+            wrap_ms = cuda_ms(lambda: (ops.interactions_auto_traced(
+                *args, backend=backend, **kw) if traced else ops.interactions_auto_edges(
+                *args, backend=backend, block_size=BLOCK)), 50)
+            records[kname][label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by, max_abs_err=err)
+            extra = f" traced={int(out_k[2].sum())}" if traced else ""
+            log(f"[kernel:{label}] {kname} bitwise equal to plain; "
+                f"live_tiles={n_live} pairs={pairs} valid_pairs={valid} "
+                f"int_ops={n_int} float_ops={n_float} contacts={int(out_k[1].sum())}"
+                f"{extra} kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} "
+                f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} ({bound_by}) "
+                f"max_abs_err={err}")
+        # Padded against compacted: the same live tiles in the same order.
+        for a, b in (("interactions_padded", "interactions_compact"),
+                     ("interactions_padded_traced", "interactions_compact_traced")):
+            for i in range(len(outs[a])):
+                if not torch.equal(outs[a][i], outs[b][i]):
+                    raise AssertionError(f"[{label}] {a} output {i} != {b}")
+        log(f"[kernel:{label}] padded bitwise equal to compacted, untraced and traced; "
+            f"sources={int(src.sum())}")
 
     # ---- phase 4: the main path -------------------------------------------
     torch.use_deterministic_algorithms(True)
-
-    def main_run():
-        state = core.init_state1()
-        torch.cuda.synchronize()
-        kernel.interactions_compact_cuda.launches = 0
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            final, hist = core.run_days(DAYS, state=state)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        return final, hist_to_numpy(hist), kernel.interactions_compact_cuda.launches, dt
-
-    final1, hist1, launches, dt1 = main_run()
-    if launches != DAYS:
-        raise AssertionError(f"{launches} kernel launches in {DAYS} days")
+    main_launches = {}
+    run1 = run_path(core, wrappers, DAYS)
+    final1, hist1, launches, dt1 = run1
+    expect_launches(launches, "interactions_compact", DAYS, "main path")
+    main_launches["interactions_compact"] = launches["interactions_compact"]
     if not np.array_equal(hist1["edges"], hist1["contacts"]):
         raise AssertionError("in-kernel edges != contacts on some day")
     cum = hist1["cumulative"]
     seeds = core.scenario.seed_per_day * core.scenario.seed_days
     if np.any(np.diff(cum) < 0) or cum[-1] <= seeds:
         raise AssertionError(f"cumulative not monotone or not above {seeds}: {cum}")
-    final2, hist2, launches2, dt2 = main_run()
-    for k in hist1:
-        if not np.array_equal(hist1[k], hist2[k]):
-            raise AssertionError(f"second run's '{k}' history differs")
-    for f in ("health", "dwell", "cumulative", "vaccinated"):
-        if not torch.equal(getattr(final1, f), getattr(final2, f)):
-            raise AssertionError(f"second run's final '{f}' differs")
+    final2, hist2, _, dt2 = run_path(core, wrappers, DAYS)
+    same_run((final1, hist1), (final2, hist2), "main path second run")
     edges = int(hist1["edges"].sum())
-    log(f"[main] {DATASET} covid seed 0, {DAYS} days: launches={launches}, "
+    log(f"[main] {DATASET} covid seed 0, {DAYS} days: launches={launches['interactions_compact']}, "
         f"cumulative={int(cum[-1])} ({100.0 * cum[-1] / P:.2f}%), "
         f"peak_infectious={int(hist1['infectious'].max())} on day "
         f"{int(np.argmax(hist1['infectious']))}, edges={edges}")
     log(f"[main] run 1: {1e3 * dt1 / DAYS:.3f} ms/day; run 2: "
         f"{1e3 * dt2 / DAYS:.3f} ms/day, {edges / dt2:.4g} traversed edges/s; "
         f"bitwise identical; {card}")
+    padded_core = EngineCore.single(pop, covid, tm, seed=0, block_size=BLOCK,
+                                    device="cuda", backend="pallas")
+    final_p, hist_p, launches, dt_p = run_path(padded_core, wrappers, DAYS)
+    expect_launches(launches, "interactions_padded", DAYS, "main path, pallas")
+    main_launches["interactions_padded"] = launches["interactions_padded"]
+    same_run((final1, hist1), (final_p, hist_p), "main path, pallas against pallas-compact")
+    log(f"[main] backend pallas: launches={launches['interactions_padded']}, "
+        f"{1e3 * dt_p / DAYS:.3f} ms/day, {edges / dt_p:.4g} traversed edges/s; "
+        f"bitwise equal to pallas-compact; {card}")
 
     # ---- phase 4b: where a day's time goes --------------------------------
     mid_state, _ = core.run_days(PROFILE_FROM)
-    profile_days(core, mid_state, card)
+    profile_days(core, mid_state, card, "main")
+
+    # ---- phase 4c: the TTI path -------------------------------------------
+    tti = {}
+    for backend in ("pallas-compact", "pallas", "pallas", "pallas-compact"):
+        c = EngineCore.single(pop, covid, tm, seed=0, block_size=BLOCK, device="cuda",
+                              backend=backend, interventions=INTERVENTION_PRESETS["tti"])
+        final, hist, launches, dt = run_path(c, wrappers, DAYS)
+        traced = "interactions_compact_traced" if backend == "pallas-compact" \
+            else "interactions_padded_traced"
+        expect_launches(launches, traced, DAYS, f"TTI path, {backend}")
+        main_launches[traced] = launches[traced]
+        if not np.array_equal(hist["edges"], hist["contacts"]):
+            raise AssertionError(f"TTI {backend}: edges != contacts on some day")
+        if hist["tests_used"].max() > TTI_TESTS_PER_DAY:
+            raise AssertionError(f"TTI {backend}: test budget exceeded")
+        for k in ("tests_used", "isolated", "traced"):
+            if hist[k].max() <= 0:
+                raise AssertionError(f"TTI {backend}: '{k}' is zero on every day")
+        if backend in tti:
+            same_run(tti[backend][:2], (final, hist), f"TTI {backend} second run")
+        tti.setdefault(backend, (final, hist, []))[2].append(dt)
+        e = int(hist["edges"].sum())
+        log(f"[tti] {DATASET} covid seed 0 preset tti, backend {backend}, {DAYS} days: "
+            f"launches={launches[traced]} ({traced}), cumulative={int(hist['cumulative'][-1])} "
+            f"({100.0 * hist['cumulative'][-1] / P:.2f}%), tests={int(hist['tests_used'].sum())}, "
+            f"isolated_peak={int(hist['isolated'].max())}, traced={int(hist['traced'].sum())}, "
+            f"edges={e}; {1e3 * dt / DAYS:.3f} ms/day, {e / dt:.4g} traversed edges/s; {card}")
+    same_run(tti["pallas"][:2], tti["pallas-compact"][:2], "TTI pallas against pallas-compact")
+    log("[tti] both backends bitwise equal (histories and final states), and each "
+        "second run bitwise identical")
+    tti_core = EngineCore.single(pop, covid, tm, seed=0, block_size=BLOCK, device="cuda",
+                                 interventions=INTERVENTION_PRESETS["tti"])
+    tti_mid, _ = tti_core.run_days(PROFILE_FROM)
+    profile_days(tti_core, tti_mid, card, "tti")
 
     # ---- phase 5: reference on a small input ------------------------------
     torch.use_deterministic_algorithms(False)
     small = get_epidemic("twin-2k")
     spop = small.build()
-    hists = {}
-    for device in ("cuda", "cpu"):
-        c = EngineCore.single(spop, covid, tx_lib.TransmissionModel(tau=small.tau),
-                              seed=0, block_size=BLOCK, device=device)
-        hists[device] = c.run1(30)[1]
-    diff = [d for d in range(30)
-            if any(hists["cuda"][k][d] != hists["cpu"][k][d] for k in hists["cpu"])]
-    ar = {d: 100.0 * h["cumulative"][-1] / spop.num_people for d, h in hists.items()}
-    if abs(ar["cuda"] - ar["cpu"]) > 5.0:
-        raise AssertionError(f"twin-2k attack rates differ: {ar}")
-    log(f"[reference] twin-2k 30 days, card vs CPU plain path: first differing "
-        f"day {diff[0] if diff else None}; attack rate {ar['cuda']:.2f}% vs "
-        f"{ar['cpu']:.2f}%")
+    tti_slot = [iv_lib.TestTraceIsolate("tti", tests_per_day=15, start_day=3,
+                                        isolation_days=6, trace_isolation_days=9)]
+    for label, days, kw in (("untraced", 30, dict(seed=0)),
+                            ("tti", 25, dict(seed=7, seed_per_day=4,
+                                             interventions=tti_slot))):
+        hists = {}
+        for device in ("cuda", "cpu"):
+            c = EngineCore.single(spop, covid, tx_lib.TransmissionModel(tau=small.tau),
+                                  block_size=BLOCK, device=device, **kw)
+            hists[device] = c.run1(days)[1]
+        diff = [d for d in range(days)
+                if any(hists["cuda"][k][d] != hists["cpu"][k][d] for k in hists["cpu"])]
+        ar = {d: 100.0 * h["cumulative"][-1] / spop.num_people for d, h in hists.items()}
+        if abs(ar["cuda"] - ar["cpu"]) > 5.0:
+            raise AssertionError(f"twin-2k {label} attack rates differ: {ar}")
+        if label == "tti" and min(hists["cuda"][k].sum()
+                                  for k in ("tests_used", "isolated", "traced")) <= 0:
+            raise AssertionError("twin-2k tti: tests, isolation or tracing unused")
+        log(f"[reference] twin-2k {label} {days} days, card vs CPU plain path: first "
+            f"differing day {diff[0] if diff else None}; attack rate "
+            f"{ar['cuda']:.2f}% vs {ar['cpu']:.2f}%")
 
-    rec = records["mid"]
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "interactions_compact",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/interactions_compact.cu",
-        "replaces": "src/repro/kernels/interactions/kernel.py:205",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in records.values()),
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"],
-        "library_ms": None,
-    }]}))
+    line = []
+    for kname, (_, _, _, replaces) in KERNELS.items():
+        rec = records[kname]["mid"]
+        line.append({
+            "name": kname,
+            "route": "cuda",
+            "source": os.path.relpath(kernel.SOURCE, ROOT),
+            "replaces": replaces,
+            "launches": main_launches[kname],
+            "max_abs_err": max(r["max_abs_err"] for r in records[kname].values()),
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
+    log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))
     return 0

@@ -1,9 +1,5 @@
-"""Named disease + intervention presets (the names the CLI accepts).
-
-The classic-family intervention presets only: a preset with a per-agent
-test-trace-isolate slot is not part of this package yet (the engine raises
-``NotImplementedError`` for one).
-"""
+"""Named disease + intervention presets (the names the CLI accepts), the
+same names and contents as the reference's ``repro.configs.presets``."""
 
 from __future__ import annotations
 
@@ -29,5 +25,15 @@ INTERVENTION_PRESETS = {
     "lockdown": [iv.Intervention(
         "lockdown", iv.CaseThreshold(on=500, off=100),
         iv.RandomFraction(0.8, salt=3), iv.Isolate(),
+    )],
+    # Per-agent family: capacity-limited daily testing with symptomatic
+    # priority; positives isolate and (optionally) their contacts are
+    # traced into the queue. Budgets are per-day absolute counts.
+    "tti": [iv.TestTraceIsolate(
+        "tti", tests_per_day=100, isolation_days=10,
+        trace=True, trace_isolation_days=14,
+    )],
+    "tti-no-trace": [iv.TestTraceIsolate(
+        "test-isolate", tests_per_day=100, isolation_days=10, trace=False,
     )],
 }

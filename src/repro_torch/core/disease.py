@@ -44,6 +44,13 @@ class DiseaseModel:
     def num_states(self) -> int:
         return len(self.states)
 
+    @property
+    def sym_table(self) -> np.ndarray:
+        """(S,) f32: 1.0 for states that present symptoms (test priority)."""
+        if self.symptomatic is not None:
+            return np.asarray(self.symptomatic, np.float32)
+        return (self.infectivity > 0).astype(np.float32)
+
     def state_index(self, name: str) -> int:
         return self.states.index(name)
 

@@ -103,7 +103,7 @@ def week_from_numpy(arrays: dict, num_people: int, *, device) -> dict:
 
     ``arrays`` holds the (7, ...) arrays of the reference's
     ``repro.engine.core.local_week_arrays`` (keys ``pid``, ``loc``,
-    ``start``, ``end``, ``p``, ``row``, ``col``, ``pa``; others are
+    ``start``, ``end``, ``p``, ``row``, ``col``, ``rs``, ``pa``; others are
     ignored), e.g. from ``jax.device_get``. Returns them as tensors on
     ``device`` plus the ``slots`` table of :func:`person_slot_table`."""
     pid = np.asarray(arrays["pid"])
@@ -116,6 +116,7 @@ def week_from_numpy(arrays: dict, num_people: int, *, device) -> dict:
         "p": t("p", torch.float32),
         "row": t("row", torch.int32),
         "col": t("col", torch.int32),
+        "rs": t("rs", torch.int32),
         "pa": t("pa", torch.int32),
         "slots": torch.as_tensor(person_slot_table(pid, num_people), device=device),
     }

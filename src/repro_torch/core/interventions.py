@@ -1,6 +1,6 @@
-"""Intervention framework (paper §III-A5, §IV-C5), the classic family.
+"""Intervention framework (paper §III-A5, §IV-C5): two families.
 
-An intervention = trigger + selector + action:
+A classic intervention = trigger + selector + action:
 
   * **Trigger** — evaluated at the end of each simulation day from global
     statistics (a reduction over people).
@@ -15,9 +15,10 @@ Everything is shape-static: triggers give scalar bools, selectors fixed
 (P,)/(L,) masks, and actions fold into per-day effective masks and
 multipliers, so the day loop never changes shape or syncs with the host.
 
-The per-agent family (:class:`TestTraceIsolate`) comes over as a config
-class only; :func:`compile_iv_params` refuses it with
-``NotImplementedError`` rather than dropping the slot.
+The per-agent family (:class:`TestTraceIsolate`) drives persistent
+per-person state instead (``tested``, ``traced``, ``isolated_until`` in
+``SimState``); its static structure is :class:`PaSlotStatic` and its
+numerics are the ``pa_*`` fields of :class:`IvParams`.
 """
 
 from __future__ import annotations
@@ -172,9 +173,14 @@ class Intervention:
 
 @dataclasses.dataclass(frozen=True)
 class TestTraceIsolate:
-    """Per-agent test-trace-isolate policy (the second intervention family):
-    capacity-limited daily testing with symptomatic priority, isolation of
-    positives, and contact tracing. Config only in this package so far."""
+    """Per-agent test-trace-isolate policy (the second intervention family).
+
+    Each day, up to ``tests_per_day`` eligible people (symptomatic first,
+    then traced contacts) are tested: an exact capacity-limited top-k under
+    the counter RNG. Positives isolate from the next day for
+    ``isolation_days``; if ``trace`` is set, today's contacts of positives
+    are traced by a second accumulator of the interaction pass and isolate
+    for ``trace_isolation_days``."""
 
     name: str
     tests_per_day: int
@@ -217,6 +223,14 @@ class IvSlotStatic:
     metric: str = "infectious"
 
 
+@dataclasses.dataclass(frozen=True)
+class PaSlotStatic:
+    """Static structure of one per-agent slot: is tracing compiled in?"""
+
+    name: str
+    trace: bool
+
+
 @dataclasses.dataclass
 class IvParams:
     """Intervention numerics as tensors (slot axis K leads)."""
@@ -229,6 +243,17 @@ class IvParams:
     factor: torch.Tensor  # (K,) f32 — scale factor, or 1-efficacy
     people: torch.Tensor  # (K, P) bool selector masks
     locations: torch.Tensor  # (K, L) bool
+    # --- per-agent (test-trace-isolate) slots, K2 axis ------------------
+    pa_enabled: torch.Tensor  # (K2,) bool — slot on/off
+    pa_start: torch.Tensor  # (K2,) int32 — first active day
+    pa_tests: torch.Tensor  # (K2,) int32 — daily testing-capacity budget
+    pa_iso: torch.Tensor  # (K2,) int32 — isolation days for positives
+    pa_trace_iso: torch.Tensor  # (K2,) int32 — isolation days for traced
+    pa_people: torch.Tensor  # (K2, P) bool — who the policy covers
+
+    @property
+    def num_pa_slots(self) -> int:
+        return self.pa_enabled.shape[-1]
 
 
 _ACTION_KINDS = {
@@ -242,21 +267,17 @@ _ACTION_KINDS = {
 
 def compile_iv_params(
     interventions: Sequence, pop, seed, *, device
-) -> tuple[tuple[IvSlotStatic, ...], IvParams]:
-    """Resolve a classic intervention list into (static slots, params).
+) -> tuple[tuple[IvSlotStatic, ...], tuple[PaSlotStatic, ...], IvParams]:
+    """Resolve a mixed intervention list into (classic static slots,
+    per-agent static slots, params).
 
-    Selector masks are resolved host-side with the scenario seed. A
-    :class:`TestTraceIsolate` slot raises ``NotImplementedError``: the
-    per-agent family is not ported yet, and silently dropping it would run
-    a different scenario than the one asked for.
+    Each family keeps its own slot order (the list order within the
+    family). Selector masks are resolved host-side with the scenario seed.
     """
     check_unique_names(interventions)
-    pa = [iv.name for iv in interventions if isinstance(iv, TestTraceIsolate)]
-    if pa:
-        raise NotImplementedError(
-            f"per-agent intervention slots {pa} (TestTraceIsolate) are not "
-            "supported by repro_torch yet"
-        )
+    pa_ivs = [iv for iv in interventions if isinstance(iv, TestTraceIsolate)]
+    interventions = [iv for iv in interventions
+                     if not isinstance(iv, TestTraceIsolate)]
 
     n_vax = sum(1 for iv in interventions if isinstance(iv.action, Vaccinate))
     if n_vax > 1:
@@ -299,13 +320,31 @@ def compile_iv_params(
         people[k] = np.asarray(iv.selector.people_mask(pop, seed))
         locations[k] = np.asarray(iv.selector.locations_mask(pop, seed))
 
+    K2 = len(pa_ivs)
+    pa_statics = []
+    pa_start = np.zeros((K2,), np.int32)
+    pa_tests = np.zeros((K2,), np.int32)
+    pa_iso = np.zeros((K2,), np.int32)
+    pa_trace_iso = np.zeros((K2,), np.int32)
+    pa_people = np.zeros((K2, pop.num_people), np.bool_)
+    for k, iv in enumerate(pa_ivs):
+        pa_statics.append(PaSlotStatic(iv.name, bool(iv.trace)))
+        pa_start[k] = iv.start_day
+        pa_tests[k] = iv.tests_per_day
+        pa_iso[k] = iv.isolation_days
+        pa_trace_iso[k] = iv.trace_isolation_days
+        pa_people[k] = np.asarray(iv.selector.people_mask(pop, seed))
+
     t = lambda a: torch.as_tensor(a, device=device)
     params = IvParams(
         enabled=t(enabled), day_start=t(day_start), day_end=t(day_end),
         thresh_on=t(thresh_on), thresh_off=t(thresh_off), factor=t(factor),
         people=t(people), locations=t(locations),
+        pa_enabled=t(np.ones((K2,), np.bool_)), pa_start=t(pa_start),
+        pa_tests=t(pa_tests), pa_iso=t(pa_iso), pa_trace_iso=t(pa_trace_iso),
+        pa_people=t(pa_people),
     )
-    return tuple(statics), params
+    return tuple(statics), tuple(pa_statics), params
 
 
 def apply_iv_params(

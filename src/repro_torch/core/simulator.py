@@ -8,9 +8,8 @@
 ``params_from_numpy`` / ``state_from_numpy`` take the reference package's
 ``SimParams`` / ``SimState`` as nested dicts of numpy arrays (e.g.
 ``dataclasses.asdict(jax.device_get(x))``), so both packages can run a day
-from one identical state. Fields of the per-agent intervention family
-(``sym_table``, ``pa_*``, ``tested``, ``traced``, ``isolated_until``) are not
-part of this package yet; they are ignored when empty and refused when not.
+from one identical state, per-agent intervention fields (``sym_table``,
+``pa_*``, ``tested``, ``traced``, ``isolated_until``) included.
 """
 
 from __future__ import annotations
@@ -29,8 +28,9 @@ from repro_torch.core import transmission as tx_lib
 # History keys of every day step, in emission order. "edges" is the
 # traversed-edge count measured inside the interaction pass; it equals
 # "contacts" exactly, which makes the kernel's counter a cross-checked
-# quantity. The last three are per-agent intervention telemetry, constant
-# zero while that family is not ported.
+# quantity. The last three are per-agent intervention telemetry (tests
+# spent, people in isolation, people newly traced); they are zero when the
+# scenario has no TestTraceIsolate slot.
 STAT_KEYS = ("day", "new_infections", "cumulative", "infectious",
              "susceptible", "contacts", "edges",
              "tests_used", "isolated", "traced")
@@ -44,6 +44,10 @@ class SimState:
     cumulative: torch.Tensor  # () int64 — infections so far (incl. seeds)
     iv_active: torch.Tensor  # (K,) bool
     vaccinated: torch.Tensor  # (P,) bool
+    # --- persistent per-agent intervention state -------------------------
+    tested: torch.Tensor  # (P,) bool — ever consumed a test
+    traced: torch.Tensor  # (P,) bool — ever traced as a contact of a positive
+    isolated_until: torch.Tensor  # (P,) int32 — isolated while day < this
 
 
 @dataclasses.dataclass
@@ -52,6 +56,7 @@ class SimParams:
     tau_eff: torch.Tensor  # () f32 — tau * time_unit (Eq. 2 prefactor)
     sus_table: torch.Tensor  # (S,) f32 sigma(X)
     inf_table: torch.Tensor  # (S,) f32 iota(X)
+    sym_table: torch.Tensor  # (S,) f32 — symptomatic states (test priority)
     cum_trans: torch.Tensor  # (S, S) f32 cumulative transition rows
     dwell_mean: torch.Tensor  # (S,) f32
     entry_state: torch.Tensor  # () int64 — state entered on infection
@@ -75,23 +80,30 @@ def build_params(
     static_network: bool = False,
     iv_enabled: Sequence[bool] = (),
     device,
-) -> tuple[tuple, SimParams]:
-    """Compile one scenario's configs into (intervention slots, SimParams).
+) -> tuple[tuple, tuple, SimParams]:
+    """Compile one scenario's configs into (classic slots, per-agent slots,
+    SimParams).
 
     ``iv_enabled`` (empty = all on) disables slots without changing the
-    slot structure."""
-    iv_slots, iv_params = iv_lib.compile_iv_params(interventions, pop, seed, device=device)
+    slot structure. It is positional over the mixed ``interventions`` list;
+    each entry goes to the family of its intervention."""
+    iv_slots, pa_slots, iv_params = iv_lib.compile_iv_params(
+        interventions, pop, seed, device=device)
     if len(iv_enabled):
-        if len(iv_enabled) != len(iv_slots):
+        if len(iv_enabled) != len(iv_slots) + len(pa_slots):
             raise ValueError("iv_enabled/slot mismatch")
-        iv_params.enabled = torch.as_tensor(
-            np.asarray(iv_enabled, np.bool_), device=device)
+        en = np.asarray(iv_enabled, np.bool_)
+        is_pa = np.asarray([isinstance(iv, iv_lib.TestTraceIsolate)
+                            for iv in interventions], np.bool_)
+        iv_params.enabled = torch.as_tensor(en[~is_pa], device=device)
+        iv_params.pa_enabled = torch.as_tensor(en[is_pa], device=device)
     t = lambda a, dtype: torch.as_tensor(np.asarray(a), device=device).to(dtype)
     params = SimParams(
         seed=t(seed & 0xFFFFFFFF, torch.int64),
         tau_eff=t(np.float32(tm.tau * tm.time_unit), torch.float32),
         sus_table=t(disease.susceptibility, torch.float32),
         inf_table=t(disease.infectivity, torch.float32),
+        sym_table=t(disease.sym_table, torch.float32),
         cum_trans=t(disease.cum_trans, torch.float32),
         dwell_mean=t(disease.dwell_mean_days, torch.float32),
         entry_state=t(disease.entry_state, torch.int64),
@@ -102,7 +114,7 @@ def build_params(
         static_network=t(static_network, torch.bool),
         iv=iv_params,
     )
-    return iv_slots, params
+    return iv_slots, pa_slots, params
 
 
 def init_state(disease: disease_lib.DiseaseModel, num_people: int,
@@ -115,39 +127,39 @@ def init_state(disease: disease_lib.DiseaseModel, num_people: int,
         cumulative=torch.zeros((), dtype=torch.int64, device=device),
         iv_active=torch.zeros((num_iv_slots,), dtype=torch.bool, device=device),
         vaccinated=torch.zeros((num_people,), dtype=torch.bool, device=device),
+        tested=torch.zeros((num_people,), dtype=torch.bool, device=device),
+        traced=torch.zeros((num_people,), dtype=torch.bool, device=device),
+        isolated_until=torch.zeros((num_people,), dtype=torch.int32, device=device),
     )
 
 
-def _tensors(d: dict, dtypes: dict, per_agent: tuple, device) -> dict:
-    """``dtypes``' keys of ``d`` as tensors; refuses live per-agent state."""
-    for k in per_agent:
-        if k in d and np.asarray(d[k]).any():
-            raise NotImplementedError(
-                f"'{k}' carries per-agent intervention state, which "
-                "repro_torch does not support yet")
+def _tensors(d: dict, dtypes: dict, device) -> dict:
+    """``dtypes``' keys of ``d`` as tensors on ``device``."""
     return {k: torch.as_tensor(np.asarray(d[k]), device=device).to(dt)
             for k, dt in dtypes.items()}
 
 
-_F32, _I64, _BOOL = torch.float32, torch.int64, torch.bool
-_IV_DTYPES = dict(enabled=_BOOL, day_start=torch.int32, day_end=torch.int32,
+_F32, _I32, _I64, _BOOL = torch.float32, torch.int32, torch.int64, torch.bool
+_IV_DTYPES = dict(enabled=_BOOL, day_start=_I32, day_end=_I32,
                   thresh_on=_F32, thresh_off=_F32, factor=_F32, people=_BOOL,
-                  locations=_BOOL)
+                  locations=_BOOL, pa_enabled=_BOOL, pa_start=_I32,
+                  pa_tests=_I32, pa_iso=_I32, pa_trace_iso=_I32,
+                  pa_people=_BOOL)
 _PARAM_DTYPES = dict(seed=_I64, tau_eff=_F32, sus_table=_F32, inf_table=_F32,
-                     cum_trans=_F32, dwell_mean=_F32, entry_state=_I64,
-                     beta_sus=_F32, beta_inf=_F32, seed_per_day=_I64,
-                     seed_days=_I64, static_network=_BOOL)
-_STATE_DTYPES = dict(day=_I64, health=torch.int32, dwell=_F32, cumulative=_I64,
-                     iv_active=_BOOL, vaccinated=_BOOL)
+                     sym_table=_F32, cum_trans=_F32, dwell_mean=_F32,
+                     entry_state=_I64, beta_sus=_F32, beta_inf=_F32,
+                     seed_per_day=_I64, seed_days=_I64, static_network=_BOOL)
+_STATE_DTYPES = dict(day=_I64, health=_I32, dwell=_F32, cumulative=_I64,
+                     iv_active=_BOOL, vaccinated=_BOOL, tested=_BOOL,
+                     traced=_BOOL, isolated_until=_I32)
 
 
 def params_from_numpy(d: dict, *, device) -> SimParams:
     """SimParams from the reference's SimParams as a nested numpy dict."""
-    iv = iv_lib.IvParams(**_tensors(d["iv"], _IV_DTYPES, ("pa_enabled",), device))
-    return SimParams(iv=iv, **_tensors(d, _PARAM_DTYPES, (), device))
+    iv = iv_lib.IvParams(**_tensors(d["iv"], _IV_DTYPES, device))
+    return SimParams(iv=iv, **_tensors(d, _PARAM_DTYPES, device))
 
 
 def state_from_numpy(d: dict, *, device) -> SimState:
     """SimState from the reference's SimState as a numpy dict."""
-    return SimState(**_tensors(d, _STATE_DTYPES,
-                               ("tested", "traced", "isolated_until"), device))
+    return SimState(**_tensors(d, _STATE_DTYPES, device))

@@ -6,7 +6,9 @@ layouts. This package places one scenario on one device (the reference's
 batch axis, the mesh layouts and chunked runs are later work.
 
 The device defaults to ``"cuda"`` and a missing card is an error, never a
-silent fall back to the CPU; tests pass ``device="cpu"``.
+silent fall back to the CPU; tests pass ``device="cpu"``. ``backend`` picks
+the interaction pass by the reference's names: ``"pallas-compact"`` (the
+default) or ``"pallas"``; both give bitwise-equal runs.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from repro_torch.core import simulator as sim_lib
 from repro_torch.core import transmission as tx_lib
 from repro_torch.engine import day as day_lib
 from repro_torch.engine.topology import LocalTopology
+from repro_torch.kernels.interactions import ops as iops
 
 
 def resolve_device(device) -> torch.device:
@@ -44,7 +47,7 @@ def local_week_arrays(pop: pop_lib.Population, week: inter_lib.WeekData,
     return inter_lib.week_from_numpy({
         "pid": week.pid, "loc": week.loc, "start": week.start, "end": week.end,
         "p": pop.contact_prob[week.loc], "row": week.row_idx,
-        "col": week.col_idx, "pa": week.pair_active,
+        "col": week.col_idx, "rs": week.row_start, "pa": week.pair_active,
     }, pop.num_people, device=device)
 
 
@@ -58,12 +61,14 @@ class EngineCore:
         *,
         block_size: int = 128,
         device="cuda",
+        backend: str = "pallas-compact",
     ):
+        iops.check_backend(backend)
         self.device = resolve_device(device)
         self.pop = pop
         self.scenario = s = scenario
         self.block_size = block_size
-        self.iv_slots, self.params = sim_lib.build_params(
+        self.iv_slots, self.pa_slots, self.params = sim_lib.build_params(
             pop, s.disease, s.tm, s.interventions, s.seed,
             seed_per_day=s.seed_per_day, seed_days=s.seed_days,
             static_network=s.static_network, iv_enabled=s.iv_enabled,
@@ -78,6 +83,8 @@ class EngineCore:
             num_locations=pop.num_locations,
             block_size=block_size,
             iv_slots=self.iv_slots,
+            pa_slots=self.pa_slots,
+            backend=backend,
         )
 
     @classmethod
@@ -97,7 +104,7 @@ class EngineCore:
         **core_kw,
     ) -> "EngineCore":
         """A core in one call; ``core_kw`` passes the placement fields
-        (``block_size``, ``device``)."""
+        (``block_size``, ``device``, ``backend``)."""
         scen = Scenario(
             name=name, disease=disease,
             tm=tm if tm is not None else tx_lib.TransmissionModel(),

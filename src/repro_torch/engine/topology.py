@@ -2,7 +2,7 @@
 
 The reference writes its day step once against a Topology protocol and
 places it on a local device, a worker mesh or a scenario mesh. This package
-has the local placement only. Its three collectives:
+has the local placement only. Its collectives and order statistics:
 
   * ``dispatch`` routes per-person channels to visit slots: a gather by
     person id, masked by the ``pid >= 0`` padding sentinel;
@@ -12,8 +12,11 @@ has the local placement only. Its three collectives:
     slot order, ``core/interactions.py:person_slot_table``) and are added one
     column at a time, so the result is bitwise the same on CPU and GPU and
     from run to run;
-  * ``seed_threshold``, the k-th smallest seeding draw: a full sort indexed
-    by a device tensor, so no host sync.
+  * ``combine_many`` folds several channels at once (exposure and traced
+    contacts) in that same order;
+  * ``seed_threshold``, the k-th smallest seeding draw, and
+    ``rank_threshold``, the testing budget's k-th smallest (score, person)
+    pair: full sorts indexed by a device tensor, so no host sync.
 """
 
 from __future__ import annotations
@@ -34,9 +37,17 @@ class LocalTopology:
     def combine(self, slots, active, acc):
         """(V,) per-visit values -> (P,) per-person sums over ``slots``, the
         day's (P, K) slot table padded with V. Inactive slots add 0.0."""
-        vals = torch.cat([torch.where(active, acc, 0.0), acc.new_zeros(1)])
-        per_person = vals[slots]
-        out = torch.zeros(slots.shape[:1], dtype=acc.dtype, device=acc.device)
+        return self.combine_many(slots, active, acc[:, None])[:, 0]
+
+    def combine_many(self, slots, active, accs):
+        """Channel-stacked :meth:`combine`: (V, C) -> (P, C). Every channel
+        folds in the same slot order, so channel 0 is bitwise the single-
+        channel combine of ``accs[:, 0]``."""
+        vals = torch.cat([torch.where(active[:, None], accs, 0.0),
+                          accs.new_zeros((1, accs.shape[1]))])
+        per_person = vals[slots]  # (P, K, C)
+        out = torch.zeros((slots.shape[0], accs.shape[1]), dtype=accs.dtype,
+                          device=accs.device)
         for k in range(slots.shape[1]):
             out = out + per_person[:, k]
         return out
@@ -45,3 +56,14 @@ class LocalTopology:
         """The k-th smallest entry of ``u``, k = min(seed_per_day, P)."""
         k = (torch.clamp(seed_per_day, max=num_people) - 1).clamp(min=0)
         return torch.sort(u).values.index_select(0, k.reshape(1))[0]
+
+    def rank_threshold(self, score, gpid, k, num_people: int):
+        """The k-th smallest ``(score, gpid)`` pair, lexicographically:
+        ``(T, G)`` such that exactly ``min(k, count(score < 4.0))`` entries
+        satisfy ``score < T or (score == T and gpid <= G)``. Here ``gpid``
+        is ``arange(P)``, already ascending, so a stable sort on ``score``
+        is the lexicographic order. The pick is a device index: no sync."""
+        order = torch.sort(score, stable=True).indices
+        idx = (torch.clamp(k, max=num_people) - 1).clamp(0, score.shape[0] - 1)
+        pick = order.index_select(0, idx.reshape(1).long())
+        return score.index_select(0, pick)[0], gpid.index_select(0, pick)[0]

@@ -8,14 +8,18 @@ windows overlap for T_ij > 0 seconds:
   * a contact contributes propensity  T_ij * sus_val_i * inf_val_j  to row
     visit i (the global tau factor is applied by the caller — it is linear).
 
-:func:`pair_tile` is the one statement of the pair math in this package; the
-CUDA kernel (``csrc/interactions_compact.cu``) is its line-by-line
+:func:`pair_tile_traced` is the one statement of the pair math in this
+package; the CUDA kernels (``csrc/interactions.cu``) are its line-by-line
 transcription. Row sums are taken **column-sequentially**:
 ``part = part + ((overlap * sus) * inf) * contact`` for j = 0, 1, ... in
 float32 from 0.0. That is the port's single accumulation order, so the
-kernel and this plain version agree bitwise. (The reference package sums a
+kernels and this plain version agree bitwise. (The reference package sums a
 row with XLA's reduction tree instead, so against it ``acc`` agrees only to
 the last bits.)
+
+Contact tracing is a second accumulator over the same pairs: a contact pair
+whose column visit is a tracing source (``src_c > 0``, a person who tested
+positive today) counts as one traced contact of the row visit.
 """
 
 from __future__ import annotations
@@ -32,18 +36,21 @@ def contact_uniform(seed, day, pid_i, pid_j, loc):
     return rng.uniform(seed, rng.CONTACT, day, pmin, pmax, loc)
 
 
-def pair_tile(
+def pair_tile_traced(
     seed,
     day,
     pid_r, loc_r, start_r, end_r, p_r, sus_r,  # row side (..., R)
     pid_c, loc_c, start_c, end_c, inf_c,  # col side (..., C)
+    src_c,  # col side: tracing-source weight (>0 for today's positives), or None
 ):
     """Row sums of one batch of (R, C) pair tiles.
 
     Row arrays are ``(..., R)``, column arrays ``(..., C)`` with the same
     leading batch shape. Returns ``(rho_rowsum (..., R) f32,
-    contact_count_rowsum (..., R) int32)``, each row summed over its C
-    columns in column order.
+    contact_count_rowsum (..., R) int32, traced_rowsum (..., R) int32)``,
+    each row summed over its C columns in column order. The traced count is
+    the contact-count condition ``& src_c > 0``; with ``src_c=None`` it is
+    None.
     """
     col = lambda a: a[..., None, :]
     row = lambda a: a[..., :, None]
@@ -62,11 +69,20 @@ def pair_tile(
     u = contact_uniform(seed, day, row(pid_r), col(pid_c), row(loc_r))
     contact = valid & (u < row(p_r))
     rho = overlap * row(sus_r) * col(inf_c) * contact.to(torch.float32)
-    cnt = contact & (row(sus_r) > 0.0) & (col(inf_c) > 0.0)
+    pair = contact & (row(sus_r) > 0.0) & (col(inf_c) > 0.0)
     part = torch.zeros(rho.shape[:-1], dtype=torch.float32, device=rho.device)
     for j in range(rho.shape[-1]):
         part = part + rho[..., j]
-    return part, cnt.sum(dim=-1, dtype=torch.int32)
+    trc = None
+    if src_c is not None:
+        trc = (pair & (col(src_c) > 0.0)).sum(dim=-1, dtype=torch.int32)
+    return part, pair.sum(dim=-1, dtype=torch.int32), trc
+
+
+def pair_tile(seed, day, *rows_and_cols):
+    """:func:`pair_tile_traced` without the tracing accumulator: returns
+    ``(rho_rowsum, contact_count_rowsum)``."""
+    return pair_tile_traced(seed, day, *rows_and_cols, None)[:2]
 
 
 def interactions_dense(pid, loc, start, end, p_loc, sus_val, inf_val, seed, day):
@@ -76,4 +92,15 @@ def interactions_dense(pid, loc, start, end, p_loc, sus_val, inf_val, seed, day)
         seed, day,
         pid, loc, start, end, p_loc, sus_val,
         pid, loc, start, end, inf_val,
+    )
+
+
+def interactions_dense_traced(pid, loc, start, end, p_loc, sus_val, inf_val,
+                              src_val, seed, day):
+    """Dense oracle with the tracing accumulator.
+    Returns (acc (V,), contacts (V,), traced (V,))."""
+    return pair_tile_traced(
+        seed, day,
+        pid, loc, start, end, p_loc, sus_val,
+        pid, loc, start, end, inf_val, src_val,
     )

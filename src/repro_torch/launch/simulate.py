@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.simulate --dataset md-mini --days 200
     PYTHONPATH=src python -m repro_torch.launch.simulate --dataset twin-2k \
         --days 30 --interventions vax-seniors --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.simulate --dataset md-mini \
+        --days 200 --interventions tti --backend pallas
 
 A thin front end over ``EngineCore.single(...).run1(days)``: one scenario on
 one device (the card unless ``--device cpu``). It prints the same
@@ -20,6 +22,7 @@ import numpy as np
 from repro_torch.configs import DISEASES, INTERVENTION_PRESETS, get_epidemic
 from repro_torch.core import transmission as tx_lib
 from repro_torch.engine import EngineCore
+from repro_torch.kernels.interactions.ops import BACKENDS
 
 
 def summary_row(name: str, hist: dict, num_people: int) -> dict:
@@ -48,6 +51,8 @@ def main(argv=None):
     ap.add_argument("--interventions", default="none",
                     choices=sorted(INTERVENTION_PRESETS),
                     help="intervention preset for this run")
+    ap.add_argument("--backend", default="pallas-compact", choices=BACKENDS,
+                    help="interaction pass, by the reference's backend names")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; the CPU only on request)")
     args = ap.parse_args(argv)
@@ -62,12 +67,13 @@ def main(argv=None):
         pop, DISEASES[args.disease](), tx_lib.TransmissionModel(tau=tau),
         interventions=INTERVENTION_PRESETS[args.interventions],
         seed=args.seed, name=args.interventions, device=args.device,
+        backend=args.backend,
     )
     t1 = time.time()
     _, hist = core.run1(args.days)
     t2 = time.time()
     print(f"dataset={args.dataset} engine=single device={core.device} "
-          f"scenarios=1 days={args.days}")
+          f"backend={args.backend} scenarios=1 days={args.days}")
     print(json.dumps(summary_row(args.interventions, hist, pop.num_people)), flush=True)
     print(json.dumps({"engine": "single", "wall_s": round(t2 - t0, 3),
                       "build_s": round(t1 - t0, 3), "run_s": round(t2 - t1, 3)}))

@@ -1,5 +1,5 @@
 """The port's engine front door: device default, what it refuses, the run
-entry points and the CLI."""
+entry points and the CLI (both interaction backends, a TTI preset)."""
 
 import json
 
@@ -35,10 +35,11 @@ def test_core_uploads_the_packed_week_once(pop):
                       block_size=64, device="cpu")
     week = build_week_data(pop, 64)
     assert set(core.week) == {"pid", "loc", "start", "end", "p", "row", "col",
-                              "pa", "slots"}
+                              "rs", "pa", "slots"}
     assert all(t.device == core.device for t in core.week.values())
     np.testing.assert_array_equal(core.week["pid"].numpy(), week.pid)
     np.testing.assert_array_equal(core.week["row"].numpy(), week.row_idx)
+    np.testing.assert_array_equal(core.week["rs"].numpy(), week.row_start)
     np.testing.assert_array_equal(core.week["p"].numpy(),
                                   pop.contact_prob[week.loc])
     assert not hasattr(core, "week_data")
@@ -71,3 +72,18 @@ def test_cli_prints_the_reference_summary_fields(capsys):
     fake = {k: np.ones((4, 1), np.int64) for k in ("cumulative", "infectious", "contacts")}
     assert set(row) == set(summarize_sweep(fake, ["x"], 10)[0])
     assert row["scenario"] == "vax-seniors" and row["cumulative"] > 0
+
+
+def test_core_refuses_an_unknown_backend(pop):
+    with pytest.raises(ValueError, match="unknown interaction backend"):
+        EngineCore.single(pop, disease.covid_model(), device="cpu", backend="compact")
+
+
+@pytest.mark.parametrize("backend", ["pallas-compact", "pallas"])
+def test_cli_runs_tti_on_either_backend(capsys, backend):
+    simulate.main(["--dataset", "twin-2k", "--days", "8", "--device", "cpu",
+                   "--interventions", "tti", "--backend", backend])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert f"backend={backend}" in lines[0]
+    row = json.loads(lines[1])
+    assert row["scenario"] == "tti" and row["cumulative"] > 0

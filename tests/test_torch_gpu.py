@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the interaction kernel bitwise against its plain
-version, the launch counter, the wrapper's input checks, and the main path
-launching the kernel once a day without a host sync.
+"""The port on a CUDA card: the four interaction kernels bitwise against
+their plain versions and each other, the launch counters, the wrappers'
+input checks, and the main path and the TTI path launching their kernel
+once a day without a host sync.
 
 Every test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a machine with PyTorch alone:
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_epidemic
+from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
 from repro_torch.core import contact as contact_lib
 from repro_torch.core import disease, transmission
 from repro_torch.core import population as pop_lib
@@ -31,7 +32,8 @@ def cuda():
 
 
 def _case(seed, b, visits, locations, people):
-    """A random packed day with its interaction-pass inputs (CPU tensors)."""
+    """A random packed day with its interaction-pass inputs (CPU tensors, in
+    the wrappers' argument order) and a tracing-source vector."""
     rs = np.random.default_rng(seed)
     person = rs.integers(0, people, visits)
     loc = rs.integers(0, locations, visits)
@@ -45,27 +47,36 @@ def _case(seed, b, visits, locations, people):
         contact_lib.max_occupancy_fast(locations, loc, start, end))
     sus = np.where(rs.random(people) < 0.7, rs.uniform(0.1, 1, people), 0)
     inf = np.where(rs.random(people) < 0.2, rs.uniform(0.1, 1, people), 0)
+    src = np.where((inf > 0) & (rs.random(people) < 0.3), 1.0, 0.0)
     safe = np.maximum(day.person, 0)
     t = lambda a, dt: torch.as_tensor(np.array(a)).to(dt)
     pid = t(day.person, torch.int32)
     sus_v = t(sus[safe] * day.active, torch.float32)
     inf_v = t(inf[safe] * day.active, torch.float32)
     nb = pid.shape[0] // b
-    return (pid, t(day.loc, torch.int32), t(day.start, torch.float32),
+    args = (pid, t(day.loc, torch.int32), t(day.start, torch.float32),
             t(day.end, torch.float32), t(p_loc[day.loc], torch.float32), sus_v, inf_v,
             t(sched.row_block, torch.int32), t(sched.col_block, torch.int32),
-            t(sched.pair_active, torch.int32),
+            t(sched.row_start, torch.int32), t(sched.pair_active, torch.int32),
             t_ops.col_has_infectious(inf_v, pid, nb, b),
             t_ops.row_has_susceptible(sus_v, pid, nb, b),
             torch.tensor([seed, 11], dtype=torch.int64))
+    return args, t(src[safe] * day.active, torch.float32)
 
 
-@pytest.mark.parametrize("seed,b,visits,locations,people", [
-    (0, 64, 300, 30, 90), (1, 64, 3000, 200, 1000),
-    (2, 128, 20000, 1500, 6000), (3, 128, 30000, 2000, 10000),
-])
+CASES = [(0, 64, 300, 30, 90), (1, 64, 3000, 200, 1000),
+         (2, 128, 20000, 1500, 6000), (3, 128, 30000, 2000, 10000)]
+WRAPPERS = {
+    "compact": t_kernel.interactions_compact_cuda,
+    "compact_traced": t_kernel.interactions_compact_traced_cuda,
+    "padded": t_kernel.interactions_padded_cuda,
+    "padded_traced": t_kernel.interactions_padded_traced_cuda,
+}
+
+
+@pytest.mark.parametrize("seed,b,visits,locations,people", CASES)
 def test_kernel_bitwise_equals_plain(cuda, seed, b, visits, locations, people):
-    args = _case(seed, b, visits, locations, people)
+    args, _ = _case(seed, b, visits, locations, people)
     cpu = t_ops.interactions_compact_edges(*args, block_size=b)
     before = t_kernel.interactions_compact_cuda.launches
     gpu = t_ops.interactions_compact_edges(*[a.to(cuda) for a in args], block_size=b)
@@ -76,10 +87,38 @@ def test_kernel_bitwise_equals_plain(cuda, seed, b, visits, locations, people):
     assert int(gpu[2]) == int(gpu[1].sum()) > 0
 
 
+@pytest.mark.parametrize("kernel", ["compact_traced", "padded", "padded_traced"])
+@pytest.mark.parametrize("seed,b,visits,locations,people", CASES)
+def test_new_kernels_bitwise_equal_plain_and_each_other(cuda, kernel, seed, b, visits,
+                                                        locations, people):
+    """Each new kernel against its plain version on the same CPU inputs, and
+    against the untraced compacted kernel: the same live tiles in the same
+    order, so acc and cnt are bitwise equal across schedules and arities."""
+    args, src = _case(seed, b, visits, locations, people)
+    backend = "pallas" if kernel.startswith("padded") else "pallas-compact"
+    traced = kernel.endswith("traced")
+    run = lambda a, s: (t_ops.interactions_auto_traced(*a, backend=backend, block_size=b,
+                                                       src_val=s) if traced else
+                        t_ops.interactions_auto_edges(*a, backend=backend, block_size=b))
+    cpu = run(args, src)
+    before = WRAPPERS[kernel].launches
+    gpu = run([a.to(cuda) for a in args], src.to(cuda))
+    torch.cuda.synchronize()
+    assert WRAPPERS[kernel].launches == before + 1
+    for a, g in zip(cpu, gpu):
+        assert a.dtype == g.dtype and torch.equal(a, g.cpu())
+    base = t_ops.interactions_compact_edges(*[a.to(cuda) for a in args], block_size=b)
+    for a, g in zip(base, gpu):  # acc, cnt, edges
+        assert torch.equal(a, g)
+    if traced:
+        assert 0 < int(gpu[3].sum()) <= int(gpu[1].sum())
+
+
 def test_kernel_wrapper_refuses_bad_inputs(cuda):
-    args = [a.to(cuda) for a in _case(0, 64, 300, 30, 90)]
-    rc = t_ops.compact_schedule(*args[7:12])
-    kargs = [*args[:7], *rc, *args[10:]]
+    args, src = _case(0, 64, 300, 30, 90)
+    args = [a.to(cuda) for a in args]
+    rc = t_ops.compact_schedule(args[7], args[8], *args[10:13])
+    kargs = [*args[:7], *rc, *args[11:]]
     with pytest.raises(ValueError, match="block_size"):
         t_kernel.interactions_compact_cuda(*kargs, block_size=48)
     bad = list(kargs)
@@ -90,6 +129,12 @@ def test_kernel_wrapper_refuses_bad_inputs(cuda):
     bad[0] = bad[0].cpu()
     with pytest.raises(ValueError, match="pid"):
         t_kernel.interactions_compact_cuda(*bad, block_size=64)
+    with pytest.raises(ValueError, match="src_val"):
+        t_kernel.interactions_padded_traced_cuda(*args, src_val=src.to(cuda)[:-1],
+                                                 block_size=64)
+    with pytest.raises(ValueError, match="schedule"):
+        t_kernel.interactions_padded_cuda(*args[:10], args[10][:-1], *args[11:],
+                                          block_size=64)
 
 
 def test_main_path_launches_the_kernel_daily_without_sync(cuda):
@@ -109,3 +154,32 @@ def test_main_path_launches_the_kernel_daily_without_sync(cuda):
     assert torch.equal(hist, again)
     h = hist.cpu().numpy()
     assert (h[:, 5] == h[:, 6]).all()  # contacts == edges
+
+
+def test_tti_path_launches_the_traced_kernel_daily_without_sync(cuda):
+    """A TTI run on each backend: one launch a day of that backend's traced
+    kernel and of no other, no host sync, and bitwise-equal histories."""
+    pop = get_epidemic("twin-2k").build()
+    hists = {}
+    for backend, kernel in (("pallas-compact", "compact_traced"),
+                            ("pallas", "padded_traced")):
+        core = EngineCore.single(pop, disease.covid_model(),
+                                 transmission.TransmissionModel(tau=2e-5),
+                                 interventions=INTERVENTION_PRESETS["tti"],
+                                 device=cuda, backend=backend)
+        state = core.init_state1()
+        torch.cuda.synchronize()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, hist = core.run_days(20, state=state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert {k: w.launches for k, w in WRAPPERS.items()} == {
+            k: 20 if k == kernel else 0 for k in WRAPPERS}
+        hists[backend] = hist.cpu().numpy()
+    h = hists["pallas"]
+    assert np.array_equal(h, hists["pallas-compact"])
+    assert (h[:, 5] == h[:, 6]).all()  # contacts == edges
+    assert h[:, 7].sum() > 0  # tests were used

@@ -1,6 +1,6 @@
 """The port's host layer against the reference's: population generators,
-the stacked week schedule and intervention compilation give identical
-arrays, and the combine's person-slot table lists exactly each person's
+the stacked week schedule and intervention compilation (both families)
+give identical arrays, and the combine's person-slot table lists exactly each person's
 visit slots in ascending order."""
 
 import dataclasses
@@ -10,15 +10,21 @@ import numpy as np
 import pytest
 
 from repro.configs.presets import INTERVENTION_PRESETS as J_PRESETS
+from repro.core import disease as j_disease
 from repro.core import interactions as j_inter
 from repro.core import interventions as j_iv
+from repro.core import simulator as j_sim
+from repro.core import transmission as j_tx
 from repro.data import digital_twin_population as j_twin
 from repro.data import grid_population as j_grid
 from repro.data import watts_strogatz_population as j_ws
 from repro.engine.core import local_week_arrays as j_week_arrays
 from repro_torch.configs.presets import INTERVENTION_PRESETS as T_PRESETS
+from repro_torch.core import disease as t_disease
 from repro_torch.core import interactions as t_inter
 from repro_torch.core import interventions as t_iv
+from repro_torch.core import simulator as t_sim
+from repro_torch.core import transmission as t_tx
 from repro_torch.data import digital_twin_population as t_twin
 from repro_torch.data import grid_population as t_grid
 from repro_torch.data import watts_strogatz_population as t_ws
@@ -96,17 +102,31 @@ def test_person_slot_table(twins):
 def test_compile_iv_params_identical(twins, preset):
     jp, tp = twins
     j_slots, j_pa, j_params = j_iv.compile_iv_params(J_PRESETS[preset], jp, 7)
-    t_slots, t_params = t_iv.compile_iv_params(T_PRESETS[preset], tp, 7, device="cpu")
-    assert j_pa == ()
-    assert [dataclasses.astuple(s) for s in j_slots] == \
-        [dataclasses.astuple(s) for s in t_slots]
+    t_slots, t_pa, t_params = t_iv.compile_iv_params(T_PRESETS[preset], tp, 7, device="cpu")
+    for j, t in ((j_slots, t_slots), (j_pa, t_pa)):
+        assert [dataclasses.astuple(s) for s in j] == [dataclasses.astuple(s) for s in t]
+    assert len(t_pa) == t_params.num_pa_slots == (preset.startswith("tti"))
     for f in ("enabled", "day_start", "day_end", "thresh_on", "thresh_off",
-              "factor", "people", "locations"):
+              "factor", "people", "locations", "pa_enabled", "pa_start",
+              "pa_tests", "pa_iso", "pa_trace_iso", "pa_people"):
         _same(jax.device_get(getattr(j_params, f)), getattr(t_params, f).numpy(), f)
 
 
-def test_per_agent_slot_refused(twins):
-    _, tp = twins
-    tti = t_iv.TestTraceIsolate("tti", tests_per_day=10)
-    with pytest.raises(NotImplementedError, match="TestTraceIsolate"):
-        t_iv.compile_iv_params([tti], tp, 0, device="cpu")
+def test_mixed_families_route_iv_enabled(twins):
+    """A mixed list: each family keeps its own slot order, and ``iv_enabled``
+    (positional over the mixed list) reaches the right family."""
+    jp, tp = twins
+    mixed = [J_PRESETS["tti"][0], J_PRESETS["lockdown"][0], J_PRESETS["tti-no-trace"][0]]
+    t_mixed = [T_PRESETS["tti"][0], T_PRESETS["lockdown"][0], T_PRESETS["tti-no-trace"][0]]
+    en = [True, False, False]
+    j_slots, j_pa, jparams = j_sim.build_params(
+        jp, j_disease.covid_model(), j_tx.TransmissionModel(), mixed, 3, iv_enabled=en)
+    t_slots, t_pa, tparams = t_sim.build_params(
+        tp, t_disease.covid_model(), t_tx.TransmissionModel(), t_mixed, 3,
+        iv_enabled=en, device="cpu")
+    assert [s.name for s in t_pa] == ["tti", "test-isolate"] and len(t_slots) == 1
+    assert [dataclasses.astuple(s) for s in j_pa] == [dataclasses.astuple(s) for s in t_pa]
+    _same(jax.device_get(jparams.iv.enabled), tparams.iv.enabled.numpy(), "enabled")
+    _same(jax.device_get(jparams.iv.pa_enabled), tparams.iv.pa_enabled.numpy(), "pa_enabled")
+    _same(jax.device_get(jparams.sym_table), tparams.sym_table.numpy(), "sym_table")
+    np.testing.assert_array_equal(tparams.iv.pa_enabled.numpy(), [True, False])

@@ -7,8 +7,9 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
   1. device — the card's name and power limit; no CUDA device is an error;
   2. build  — nvcc builds the interaction kernels (one source, four
-     instantiations) from the checkout's sources and prints ptxas's
-     registers / shared memory / spills for each;
+     instantiations) and the flash-attention kernel (one source, six
+     instantiations), both at once, from the checkout's sources and prints
+     ptxas's registers / shared memory / spills for each;
   3. kernels against their plain versions at md-mini day shapes (b=128) in
      three states (early, mid-epidemic, everyone infectious and
      susceptible), with a tracing-source vector on ~1% of the infectious
@@ -28,7 +29,21 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      run of each; ms/day and traversed edges/s; a profiled TTI week;
   5. reference — twin-2k on the card against the plain path on the CPU, 30
      days untraced and 25 days under test-trace-isolate: the same
-     trajectory up to float ulps in exp/log.
+     trajectory up to float ulps in exp/log;
+  6. flash attention — the kernel (built in phase 2 beside the interaction
+     kernels) against its plain version at qwen2-1.5b's prefill shape (B=8,
+     S=512, 12 query heads over 2 KV heads, Dh=128, bf16, causal) and in
+     extra cases (Dh 64 and 256, float32, end-aligned Sq < Sk, a window of
+     128, ragged tiles), each within its stated tolerance; times of the
+     kernel, the plain version and F.scaled_dot_product_attention (the
+     library yardstick, never used by the port), and the bound;
+  7. the serving path — repro_torch.launch.serve.serve with qwen2-1.5b at
+     full width and depth (28 layers, d_model 1536), bf16, attn_impl
+     "flash", seeded random parameters, batch 8, prompt 512, 32 greedy
+     tokens: 28 kernel launches per prefill, the prefill's last logits
+     against the replay's at position 511 and a "naive" prefill, a second
+     session giving identical tokens; prefill ms, decode ms per step and
+     tokens/s.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
@@ -43,6 +58,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -92,10 +108,46 @@ KERNELS = {
                                    "src/repro/kernels/interactions/kernel.py:66"),
 }
 TTI_TESTS_PER_DAY = 100  # the "tti" preset's budget
+# Flash attention. Dense tensor-core peaks (NVIDIA H100 datasheet): 989e12
+# bf16 FLOP/s; float32 inputs get the 67e12 FLOP/s of the FP32 lanes, since
+# the function's float32 dots have no tensor-core path of full precision.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Kernel against plain: the same float32 arithmetic in another order, so
+# float32 outputs agree to |d| <= 1e-5 + 1e-5|x|; a bf16 output may round
+# to the neighbouring bf16 (2^-8 relative at most): |d| <= 2e-2 + 1e-2|x|.
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+# (label, B, H, M, Sq, Sk, Dh, dtype, causal, window); the first is the
+# serving prefill's shape and the kernel's JSON record.
+FLASH_CASES = (
+    ("prefill", 8, 12, 2, 512, 512, 128, torch.bfloat16, True, None),
+    ("dh64", 8, 12, 2, 512, 512, 64, torch.bfloat16, True, None),
+    ("dh256", 8, 12, 2, 512, 512, 256, torch.bfloat16, True, None),
+    ("f32", 8, 12, 2, 512, 512, 128, torch.float32, True, None),
+    ("end_aligned", 8, 12, 2, 256, 512, 128, torch.bfloat16, True, None),
+    ("window128", 8, 12, 2, 512, 512, 128, torch.bfloat16, True, 128),
+    ("ragged", 2, 12, 2, 200, 300, 64, torch.float32, False, None),
+)
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:28"
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen2-1.5b", 8, 512, 32
+# Prefill logits (bf16 compute) against the replay's at prompt_len - 1 and
+# against a "naive" prefill: the paths round differently (flash attends in
+# float32, naive takes bf16 logits, the replay reads the bf16 cache), which
+# moved logits by ~2% of their largest magnitude over 28 layers at reduced
+# width on the CPU; the bound is 8%. A feeding or masking fault moves them by
+# the order of the logits themselves.
+SERVE_REL_TOL = 0.08
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The script's wall time at the start of ``phase``."""
+    log(f"[time] {phase} starts at {time.perf_counter() - T_START:.1f} s")
 
 
 def card_line() -> str:
@@ -258,6 +310,201 @@ def expect_launches(launches: dict, kernel: str, days: int, what: str) -> None:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
+def flash_bound(q, k, v, o, live_pairs: int):
+    """Least time for the attention function: Q, K, V read once and O written
+    once at peak bandwidth (K/V at their kv-head count: the kernel reads them
+    in place), against 4 Dh flops (two multiply-adds) per unmasked
+    (query, key) pair and query head at the input type's peak rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
+    flops = 4 * q.shape[-1] * live_pairs * q.shape[0]
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", flops
+
+
+def attention_mask(Sq, Sk, causal, window, device):
+    """(Sq, Sk) boolean mask of the unmasked pairs, queries end-aligned."""
+    qpos = torch.arange(Sk - Sq, Sk, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def flash_phase(fk, card: str) -> dict:
+    """The flash kernel against its plain version in each of FLASH_CASES;
+    times by CUDA events; returns the first case's JSON fields."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products in
+    torch.backends.cudnn.allow_tf32 = False  # the plain version and SDPA
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = None
+    for label, B, H, M, Sq, Sk, Dh, dt, causal, window in FLASH_CASES:
+        G = H // M
+        draw = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dt)
+        q, k, v = draw(B * H, Sq, Dh), draw(B * M, Sk, Dh), draw(B * M, Sk, Dh)
+        kw = dict(causal=causal, window=window)
+        run_k = lambda: fk.flash_attention_bhsd_cuda(q, k, v, **kw)
+        run_p = lambda: fk.flash_attention_bhsd_plain(q, k, v, **kw)
+        o_k, o_p = run_k(), run_p()
+        torch.cuda.synchronize()
+        if not torch.isfinite(o_k.float()).all():
+            raise AssertionError(f"[flash:{label}] non-finite kernel output")
+        atol, rtol = FLASH_TOL[dt]
+        diff = (o_k.float() - o_p.float()).abs()
+        err = float(diff.max())
+        worst = float((diff - rtol * o_p.float().abs()).max())
+        if worst > atol:
+            raise AssertionError(f"[flash:{label}] kernel != plain: max |d| {err}, "
+                                 f"tolerance {atol} + {rtol}|x|")
+        mask = attention_mask(Sq, Sk, causal, window, "cuda")
+        qs = q.view(B, H, Sq, Dh)
+        ks = k.view(B, M, Sk, Dh).repeat_interleave(G, dim=1)
+        vs = v.view(B, M, Sk, Dh).repeat_interleave(G, dim=1)
+        if causal and window is None and Sq == Sk:
+            run_lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        elif not causal and window is None:
+            run_lib = lambda: F.scaled_dot_product_attention(qs, ks, vs)
+        else:  # bottom-right aligned masks: is_causal aligns top-left
+            run_lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        lib_err = float((run_lib().reshape(B * H, Sq, Dh).float() - o_p.float()).abs().max())
+        ms, plain_ms, lib_ms = cuda_ms(run_k, 20), cuda_ms(run_p, 20), cuda_ms(run_lib, 20)
+        live = int(mask.sum())
+        bound_ms, bound_by, flops = flash_bound(q, k, v, o_k, live)
+        log(f"[flash:{label}] B={B} H={H} M={M} Sq={Sq} Sk={Sk} Dh={Dh} "
+            f"{str(dt).split('.')[-1]} causal={causal} window={window}: kernel within "
+            f"tolerance of plain (max_abs_err={err}, tolerance {atol} + {rtol}|x|); "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+            f"(sdpa max |d| vs plain {lib_err:.3g}) bound_ms={bound_ms:.5f} ({bound_by}; "
+            f"{flops / 1e9:.3f} GFLOP, live fraction {live / (Sq * Sk):.4f}) "
+            f"{100.0 * bound_ms / ms:.2f}% of bound; {flops / ms / 1e9:.2f} TFLOP/s; {card}")
+        if out is None:
+            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib_ms)
+    return out
+
+
+def device_summary(prof, wall_ms: float, steps: int, label: str, card: str) -> None:
+    """Device busy time, idle share of the span, device ops and the top
+    kernels per step of a torch.profiler window."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        log(f"[profile:{label}] torch.profiler recorded no device events: not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
+    by_name: dict = {}
+    for e in dev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    fl = by_name.get(next((k for k in by_name if "flash_fwd_kernel" in k), ""), (0, 0.0))
+    log(f"[profile:{label}] per step (profiler on): wall {wall_ms / steps:.3f} ms, device "
+        f"busy {busy / steps:.3f} ms over a span of {span / steps:.3f} ms, idle share "
+        f"{1.0 - busy / span:.4f}; {len(dev) / steps:.1f} device ops; flash_fwd_kernel "
+        f"{fl[0] / steps:.1f} launches, {fl[1] / steps:.4f} ms ({fl[1] / busy:.4f} of "
+        f"device time); {card}")
+    for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        log(f"[profile:{label}]   {ms / steps:9.4f} ms/step  {n / steps:6.1f}/step  {name[:100]}")
+
+
+def profile_serving(cfg, params, prompts, card: str, decode_steps: int = 16) -> None:
+    """torch.profiler over one prefill and over decode steps at positions
+    past the prompt (the session's own calls, after its warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    p = M.prepare(cfg, params)
+    toks = torch.as_tensor(prompts, device="cuda").long()
+    cache = M.init_cache(cfg, toks.shape[0], SERVE_PROMPT + decode_steps, device="cuda")
+    tok = toks[:, -1:]
+    with torch.no_grad():
+        for label, steps, fn in (
+                ("prefill", 1, lambda: M.forward_prefill(cfg, p, {"tokens": toks})),
+                ("decode", decode_steps, lambda: [M.decode_step(cfg, p, cache, tok, SERVE_PROMPT + i)
+                                                  for i in range(decode_steps)])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            device_summary(prof, (time.perf_counter() - t0) * 1e3, steps, label, card)
+
+
+def serve_phase(fk, card: str) -> int:
+    """qwen2-1.5b served at full width through repro_torch.launch.serve:
+    returns the flash launches of one session (one prefill)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.serve import serve, summary
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), compute_dtype="bfloat16",
+                              attn_impl="flash")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = TokenPipeline(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH, 0).batch(0)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, Dh {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {M.param_count(cfg)} parameters, "
+        f"compute {cfg.compute_dtype}, attn_impl {cfg.attn_impl}; set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sessions, launches = [], []
+    for _ in range(2):
+        fk.flash_attention_bhsd_cuda.launches = 0
+        res = serve(cfg, params, prompts, SERVE_GEN, device="cuda")
+        launches.append(fk.flash_attention_bhsd_cuda.launches)
+        sessions.append(res)
+    if launches != [cfg.num_layers] * 2:
+        raise AssertionError(f"flash launches per session {launches}, expected "
+                             f"{cfg.num_layers} (one per layer of one prefill)")
+    res = sessions[0]
+    if not np.array_equal(res.tokens, sessions[1].tokens):
+        raise AssertionError("a second session generated other tokens")
+    pre, rep = res.prefill_logits.float(), res.replay_logits.float()
+    V = cfg.vocab_size
+    if pre.shape != (SERVE_BATCH, 1, V) or not torch.isfinite(pre).all() \
+            or not torch.isfinite(rep).all():
+        raise AssertionError(f"prefill logits {tuple(pre.shape)} not finite (B, 1, {V})")
+    if res.tokens.shape != (SERVE_BATCH, SERVE_GEN) or res.tokens.min() < 0 \
+            or res.tokens.max() >= V:
+        raise AssertionError(f"generated tokens {res.tokens.shape} out of range")
+    with torch.no_grad():
+        naive = M.forward_prefill(dataclasses.replace(cfg, attn_impl="naive"),
+                                  M.cast_params(cfg, params),
+                                  {"tokens": torch.as_tensor(prompts, device="cuda").long()})[0]
+    scale = float(pre.abs().max())
+    for what, other in (("replay", rep), ("naive", naive.float())):
+        d = float((pre - other).abs().max())
+        agree = float((pre.argmax(-1) == other.argmax(-1)).float().mean())
+        log(f"[serve] prefill logits against {what}: max |d| {d:.5f} of max |logit| "
+            f"{scale:.4f} (tolerance {SERVE_REL_TOL} x that), argmax agreement {agree:.3f}")
+        if d > SERVE_REL_TOL * scale:
+            raise AssertionError(f"prefill logits against {what}: {d} > "
+                                 f"{SERVE_REL_TOL} x {scale}")
+    for i, r in enumerate(sessions):
+        log(f"[serve] session {i + 1}: prefill_ms={1e3 * r.prefill_s:.3f} "
+            f"decode_ms_per_step={1e3 * r.decode_s / r.decode_steps:.3f} "
+            f"({r.decode_steps} steps of batch {SERVE_BATCH}: {SERVE_PROMPT - 1} replayed, "
+            f"{SERVE_GEN} generated) tokens_per_s={r.tokens.size / r.decode_s:.2f} "
+            f"prefill_tokens_per_s={SERVE_BATCH * SERVE_PROMPT / r.prefill_s:.1f}; {card}")
+        log(f"[serve:{i + 1}] {json.dumps(summary(cfg, r))}")
+    profile_serving(cfg, params, prompts, card)
+    log(f"[serve:launches] flash_attention {launches[0]} per prefill, both sessions; "
+        f"tokens identical across sessions; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches[0]
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -269,6 +516,7 @@ def main() -> int:
     from repro_torch.core import interventions as iv_lib
     from repro_torch.core import transmission as tx_lib
     from repro_torch.engine import EngineCore
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.interactions import kernel, ops
 
     card = card_line()
@@ -278,11 +526,16 @@ def main() -> int:
         f"devices={count}")
     wrappers = {k: getattr(kernel, v[0]) for k, v in KERNELS.items()}
 
-    # ---- phase 2: build ----------------------------------------------------
+    # ---- phase 2: build (one nvcc per source, all started together) --------
+    stamp("build")
     t0 = time.perf_counter()
-    lib, ptxas = kernel.build()
-    log(f"[build] {os.path.relpath(kernel.SOURCE, ROOT)} -> "
-        f"{os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {m: pool.submit(m.build) for m in (kernel, flash_kernel)}
+        built = {m: f.result() for m, f in futures.items()}
+    log(f"[build] both sources in {time.perf_counter() - t0:.2f} s")
+    for m, (lib, _) in built.items():
+        log(f"[build] {os.path.relpath(m.SOURCE, ROOT)} -> {os.path.relpath(lib, ROOT)}")
+    ptxas = built[kernel][1]
     inst = None
     for line in ptxas.splitlines():
         m = re.search(r"interactions_kernelILb([01])ELb([01])E", line)
@@ -290,8 +543,18 @@ def main() -> int:
             inst = f"traced={m.group(1)} padded={m.group(2)}"
         elif inst and ("registers" in line or "spill" in line):
             log(f"[build] interactions_kernel<{inst}>: {line.strip()}")
+    inst = None
+    for line in built[flash_kernel][1].splitlines():
+        m = re.search(r"flash_fwd_kernelI(\w+?)Li(\d+)E", line)
+        if m and "entry function" in line:
+            inst = f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'}, Dh={m.group(2)}"
+            log(f"[build] flash_fwd_kernel<{inst}>: dynamic shared memory "
+                f"{flash_kernel.shared_bytes(int(m.group(2)))} bytes per CTA of 256 threads")
+        elif inst and ("registers" in line or "spill" in line or "smem" in line):
+            log(f"[build] flash_fwd_kernel<{inst}>: {line.strip()}")
 
     # ---- phase 3: kernels against their plain versions ----------------------
+    stamp("interaction kernels")
     epi = get_epidemic(DATASET)
     t0 = time.perf_counter()
     pop = epi.build()
@@ -373,6 +636,7 @@ def main() -> int:
             f"sources={int(src.sum())}")
 
     # ---- phase 4: the main path -------------------------------------------
+    stamp("main path")
     torch.use_deterministic_algorithms(True)
     main_launches = {}
     run1 = run_path(core, wrappers, DAYS)
@@ -410,6 +674,7 @@ def main() -> int:
     profile_days(core, mid_state, card, "main")
 
     # ---- phase 4c: the TTI path -------------------------------------------
+    stamp("TTI path")
     tti = {}
     for backend in ("pallas-compact", "pallas", "pallas", "pallas-compact"):
         c = EngineCore.single(pop, covid, tm, seed=0, block_size=BLOCK, device="cuda",
@@ -444,6 +709,7 @@ def main() -> int:
     profile_days(tti_core, tti_mid, card, "tti")
 
     # ---- phase 5: reference on a small input ------------------------------
+    stamp("reference")
     torch.use_deterministic_algorithms(False)
     small = get_epidemic("twin-2k")
     spop = small.build()
@@ -469,6 +735,15 @@ def main() -> int:
             f"differing day {diff[0] if diff else None}; attack rate "
             f"{ar['cuda']:.2f}% vs {ar['cpu']:.2f}%")
 
+    # ---- phase 6: flash attention against its plain version -----------------
+    stamp("flash attention")
+    flash_rec = flash_phase(flash_kernel, card)
+
+    # ---- phase 7: the serving path ------------------------------------------
+    stamp("serving")
+    flash_launches = serve_phase(flash_kernel, card)
+
+    stamp("end")
     log(card)
     line = []
     for kname, (_, _, _, replaces) in KERNELS.items():
@@ -486,6 +761,14 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": None,
         })
+    line.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": os.path.relpath(flash_kernel.SOURCE, ROOT),
+        "replaces": FLASH_REPLACES,
+        "launches": flash_launches,
+        **flash_rec,
+    })
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -1,0 +1,35 @@
+"""Model-layout GQA flash attention (the reference's
+``kernels/flash_attention/ops.py``).
+
+Takes the model's grouped layout, q (B, Sq, M, G, Dh) and k/v (B, Sk, M, Dh),
+flattens (B, M, G) into the kernel's head axis and (B, M) into the key/value
+head axis (the kernel reads key/value head bh // G in place, so K and V are
+not repeated), and returns (B, Sq, M*G, Dh) with head h = m*G + g.
+
+CUDA tensors launch the kernel (or raise); CPU tensors run its plain
+version. Nothing else: no fall back from one to the other.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention import kernel
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
+    """q: (B, Sq, M, G, Dh); k, v: (B, Sk, M, Dh) -> (B, Sq, M*G, Dh)."""
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    B, Sq, M, G, Dh = q.shape
+    Sk = k.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * M * G, Sq, Dh).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(B * M, Sk, Dh).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(B * M, Sk, Dh).contiguous()
+    if q.is_cuda:
+        out = kernel.flash_attention_bhsd_cuda(qf, kf, vf, causal=causal,
+                                               window=window, scale=scale)
+    elif q.device.type == "cpu":
+        out = kernel.flash_attention_bhsd_plain(qf, kf, vf, causal=causal,
+                                                window=window, scale=scale)
+    else:
+        raise ValueError(f"flash attention runs on CUDA or the CPU, not {q.device}")
+    return out.reshape(B, M, G, Sq, Dh).permute(0, 3, 1, 2, 4).reshape(B, Sq, M * G, Dh)

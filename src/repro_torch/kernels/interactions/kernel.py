@@ -37,52 +37,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build as build_lib
 from repro_torch.kernels.interactions.ref import pair_tile_traced
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "interactions.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = build_lib.CSRC / "interactions.cu"
+# --fmad=false: no contraction of a product into a sum, so the kernels'
+# float arithmetic is the plain versions' bit for bit.
+NVCC_FLAGS = (*build_lib.BASE_FLAGS, "--fmad=false")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
-
-
-def build() -> tuple[Path, str]:
+def build():
     """Compile the kernels if their library is missing; returns the library
     path and the ``-Xptxas -v`` report (registers, shared memory, spills)."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"interactions_{key.hexdigest()[:16]}.so"
-    log = lib.with_suffix(".log")
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
-            )
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib, log.read_text() if log.exists() else ""
+    return build_lib.build(SOURCE, NVCC_FLAGS)
 
 
 @functools.cache

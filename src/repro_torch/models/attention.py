@@ -1,0 +1,180 @@
+"""Attention: GQA with optional qk-norm, QKV biases and sliding windows,
+RoPE, and a ring-buffer KV cache (the reference's ``models/attention.py``
+on one device, without sharding rules).
+
+Shapes: H query heads grouped over M kv heads (G = H // M). Attention math
+is written grouped, q (B, S, M, G, Dh) against k/v (B, S, M, Dh), without
+materialising repeated K/V.
+
+Cache contract (decode): a cache entry is a dict with k/v of shape
+(B, M, T, Dh), T the allocated slots (full length, or the window for SWA
+archs). Absolute position p sits in slot ``p % T``. Keys are stored post-RoPE
+at absolute positions. Slot i holds position ``pos - ((pos - i) mod T)`` for
+query position ``pos`` (floor mod), valid iff that is >= 0. The port writes
+the new key/value into the cache in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+
+
+def rotary(cfg, positions):
+    """The rotary tables (sin, cos) for (B or 1, S) ``positions``, or None
+    when the arch has no RoPE; one pass computes them once for all layers."""
+    if not cfg.rope_theta:
+        return None
+    return layers.rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta, 4)
+
+
+def qkv_project(x, p, cfg, rot):
+    """x: (B, S, D) -> q (B,S,M,G,Dh), k,v (B,S,M,Dh), roped by the
+    :func:`rotary` tables ``rot``."""
+    H, M, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    G = H // M
+    B, S, D = x.shape
+    q = (x @ p["wq"].reshape(D, H * Dh)).reshape(B, S, H, Dh)
+    k = (x @ p["wk"].reshape(D, M * Dh)).reshape(B, S, M, Dh)
+    v = (x @ p["wv"].reshape(D, M * Dh)).reshape(B, S, M, Dh)
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rot is not None:
+        q = layers.apply_rope(q, *rot)
+        k = layers.apply_rope(k, *rot)
+    return q.reshape(B, S, M, G, Dh), k, v
+
+
+def attend(q, k, v, mask, cfg):
+    """q: (B,Sq,M,G,Dh); k,v: (B,Sk,M,Dh); mask broadcastable to
+    (B,M,G,Sq,Sk). Logits in the compute dtype, softmax in float32.
+    Returns (B,Sq,H,Dh)."""
+    scale = cfg.resolved_head_dim**-0.5
+    logits = torch.einsum("bsmgk,btmk->bmgst", q, k) * scale
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bmgst,btmk->bsmgk", probs, v)
+    B, Sq = out.shape[0], out.shape[1]
+    return out.reshape(B, Sq, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def causal_window_mask(sq: int, sk_offset: int, sk: int, window: Optional[int], device):
+    """(Sq, Sk) mask; query i is at absolute position sk_offset + i."""
+    qpos = sk_offset + torch.arange(sq, dtype=torch.int32, device=device)[:, None]
+    kpos = torch.arange(sk, dtype=torch.int32, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return m
+
+
+def attend_chunked(q, k, v, cfg, *, causal=True, window=None, chunk=1024):
+    """Online-softmax attention over KV chunks in plain PyTorch (the
+    reference's XLA flash algorithm): never materialises (Sq, Sk), computes
+    every chunk (no skip). The accumulator stays in the compute dtype, the
+    running max and sum in float32.
+
+    q: (B,Sq,M,G,Dh); k,v: (B,Sk,M,Dh). Returns (B,Sq,H,Dh)."""
+    B, Sq, M, G, Dh = q.shape
+    Sk = k.shape[1]
+    chunk = min(chunk, Sk)
+    if Sk % chunk:
+        raise ValueError(f"Sk={Sk} is not a multiple of the chunk {chunk}")
+    scale = cfg.resolved_head_dim**-0.5
+    q = q * scale
+    dev = q.device
+    qpos = torch.arange(Sq, dtype=torch.int32, device=dev)[:, None]
+    m = torch.full((B, M, G, Sq), float("-inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((B, M, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, M, G, Dh), dtype=q.dtype, device=dev)
+    for j in range(Sk // chunk):
+        kj, vj = k[:, j * chunk:(j + 1) * chunk], v[:, j * chunk:(j + 1) * chunk]
+        logits = torch.einsum("bsmgk,btmk->bmgst", q, kj).float()
+        kpos = j * chunk + torch.arange(chunk, dtype=torch.int32, device=dev)[None, :]
+        mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask = kpos <= qpos
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        logits = torch.where(mask, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bmgst,btmk->bsmgk", p.to(q.dtype), vj)
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None].to(acc.dtype) + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None].to(acc.dtype)
+    return out.reshape(B, Sq, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def self_attention(x, p, cfg, rot, *, window=None, causal=True):
+    """Full-sequence attention (prefill); ``rot`` holds the :func:`rotary`
+    tables of positions ``arange(S)``. Returns (out, (k, v))."""
+    B, S, _ = x.shape
+    q, k, v = qkv_project(x, p, cfg, rot)
+    if cfg.attn_impl == "flash":
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    elif cfg.attn_impl == "chunked":
+        out = attend_chunked(q, k, v, cfg, causal=causal, window=window,
+                             chunk=cfg.attn_chunk)
+    elif cfg.attn_impl == "naive":
+        if causal:
+            mask = causal_window_mask(S, 0, S, window, x.device)[None, None, None]
+        else:
+            mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool, device=x.device)
+        out = attend(q, k, v, mask, cfg)
+    else:
+        raise ValueError(f"unknown attn_impl '{cfg.attn_impl}'")
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, (k, v)
+
+
+def init_cache_entry(cfg, batch: int, alloc: int, *, device, dtype=torch.bfloat16):
+    M, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, M, alloc, Dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, M, alloc, Dh), dtype=dtype, device=device),
+    }
+
+
+def decode_tables(cfg, pos: int, T: int, *, window=None, device):
+    """What one decode position needs in every layer: the rotary tables at
+    ``pos`` and the (1,1,1,1,T) validity mask of the ring's slots (slot i
+    holds position pos - ((pos - i) mod T), floor mod; valid iff >= 0 and
+    inside the window)."""
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=device)
+    i = torch.arange(T, dtype=torch.int64, device=device)
+    slot_pos = pos - torch.remainder(pos - i, T)
+    valid = slot_pos >= 0
+    if window is not None:
+        valid = valid & (slot_pos > pos - window)
+    return rotary(cfg, positions), valid[None, None, None, None, :]
+
+
+def decode_attention(x, p, cache, pos: int, cfg, tables):
+    """Single-token decode. x: (B, 1, D); pos: absolute position (a Python
+    int); ``tables``: :func:`decode_tables` for ``pos`` (the window enters
+    there). Writes the new key/value into ``cache`` in place; returns
+    (out (B,1,D), cache)."""
+    rot, mask = tables
+    q, k_new, v_new = qkv_project(x, p, cfg, rot)
+    slot = pos % cache["k"].shape[2]
+    cache["k"][:, :, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, :, slot] = v_new[:, 0].to(cache["v"].dtype)
+    kk = cache["k"].permute(0, 2, 1, 3).to(q.dtype)  # (B, T, M, Dh)
+    vv = cache["v"].permute(0, 2, 1, 3).to(q.dtype)
+    out = attend(q, kk, vv, mask, cfg)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, cache

@@ -1,7 +1,9 @@
 """The port on a CUDA card: the four interaction kernels bitwise against
 their plain versions and each other, the launch counters, the wrappers'
 input checks, and the main path and the TTI path launching their kernel
-once a day without a host sync.
+once a day without a host sync; the flash-attention kernel against its
+plain version, its wrapper's checks, and a prefill launching it once per
+layer.
 
 Every test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a machine with PyTorch alone:
@@ -9,16 +11,21 @@ no JAX, so it runs on a machine with PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
+from repro_torch.configs import ARCHS, INTERVENTION_PRESETS, get_epidemic, reduced_config
 from repro_torch.core import contact as contact_lib
 from repro_torch.core import disease, transmission
 from repro_torch.core import population as pop_lib
 from repro_torch.engine import EngineCore
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import kernel as f_kernel
 from repro_torch.kernels.interactions import kernel as t_kernel
+from repro_torch.models import model as t_model
 from repro_torch.kernels.interactions import ops as t_ops
 
 pytestmark = pytest.mark.gpu
@@ -183,3 +190,70 @@ def test_tti_path_launches_the_traced_kernel_daily_without_sync(cuda):
     assert np.array_equal(h, hists["pallas-compact"])
     assert (h[:, 5] == h[:, 6]).all()  # contacts == edges
     assert h[:, 7].sum() > 0  # tests were used
+
+
+# Flash attention: the kernel and its plain version run the same float32
+# arithmetic in another order (float32 |d| <= 1e-5 + 1e-5|x|); a bfloat16
+# output may round to the neighbouring bfloat16 (|d| <= 2e-2 + 1e-2|x|).
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("Dh", f_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("Sq,Sk,causal,window", [(128, 128, True, None),
+                                                 (100, 173, True, None),
+                                                 (96, 96, True, 20),
+                                                 (70, 90, False, None)])
+def test_flash_kernel_matches_plain(cuda, dtype, Dh, Sq, Sk, causal, window):
+    """Full and ragged tiles, end-aligned queries, a window narrower than a
+    key tile, bidirectional; 6 query heads over 2 key/value heads."""
+    g = torch.Generator(device=cuda).manual_seed(Dh + Sq)
+    draw = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v = draw(6, Sq, Dh), draw(2, Sk, Dh), draw(2, Sk, Dh)
+    before = f_kernel.flash_attention_bhsd_cuda.launches
+    got = f_kernel.flash_attention_bhsd_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert f_kernel.flash_attention_bhsd_cuda.launches == before + 1
+    want = f_kernel.flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_wrapper_refuses_bad_inputs(cuda):
+    q = torch.randn(4, 64, 64, device=cuda)
+    k = torch.randn(2, 64, 64, device=cuda)
+    before = f_kernel.flash_attention_bhsd_cuda.launches
+    with pytest.raises(ValueError, match="cpu"):  # no mix of devices
+        f_kernel.flash_attention_bhsd_cuda(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="cpu"):
+        flash_attention(q.view(1, 64, 2, 2, 64), k.cpu().view(1, 64, 2, 64),
+                        k.view(1, 64, 2, 64))
+    with pytest.raises(ValueError, match="head dim"):
+        f_kernel.flash_attention_bhsd_cuda(q[..., :32].contiguous(),
+                                           k[..., :32].contiguous(), k[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        f_kernel.flash_attention_bhsd_cuda(q.transpose(0, 1).contiguous().transpose(0, 1),
+                                           k, k)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        f_kernel.flash_attention_bhsd_cuda(q.half(), k.half(), k.half())
+    assert f_kernel.flash_attention_bhsd_cuda.launches == before
+
+
+def test_prefill_launches_flash_once_per_layer(cuda):
+    """A reduced qwen2 (head dim 64, a width the kernel takes) prefilled
+    with attn_impl "flash" on the card: one launch per layer, and logits
+    within 1e-3 of the CPU path's (float32 compute)."""
+    cfg = dataclasses.replace(reduced_config(ARCHS["qwen2-1.5b"]), head_dim=64,
+                              compute_dtype="float32", attn_impl="flash")
+    params = t_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 96)))
+    want, _ = t_model.forward_prefill(cfg, params, {"tokens": toks})
+    on_card = {k: {kk: a.to(cuda) for kk, a in v.items()} if isinstance(v, dict)
+               else v.to(cuda) for k, v in params.items()}
+    f_kernel.flash_attention_bhsd_cuda.launches = 0
+    got, cache = t_model.forward_prefill(cfg, on_card, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert f_kernel.flash_attention_bhsd_cuda.launches == cfg.num_layers
+    assert cache["k"].is_cuda
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)

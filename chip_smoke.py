@@ -7,8 +7,9 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
   1. device — the card's name and power limit; no CUDA device is an error;
   2. build  — nvcc builds the interaction kernels (one source, four
-     instantiations) and the flash-attention kernel (one source, six
-     instantiations), both at once, from the checkout's sources and prints
+     instantiations) and the flash-attention kernels (one source: the bf16
+     wgmma/TMA design at Dh 64/128/256 and the float32 FP32-lane design at
+     the same three), both at once, from the checkout's sources and prints
      ptxas's registers / shared memory / spills for each;
   3. kernels against their plain versions at md-mini day shapes (b=128) in
      three states (early, mid-epidemic, everyone infectious and
@@ -30,13 +31,14 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
   5. reference — twin-2k on the card against the plain path on the CPU, 30
      days untraced and 25 days under test-trace-isolate: the same
      trajectory up to float ulps in exp/log;
-  6. flash attention — the kernel (built in phase 2 beside the interaction
-     kernels) against its plain version at qwen2-1.5b's prefill shape (B=8,
+  6. flash attention — the kernels (built in phase 2 beside the interaction
+     kernels) against their plain version at qwen2-1.5b's prefill shape (B=8,
      S=512, 12 query heads over 2 KV heads, Dh=128, bf16, causal) and in
      extra cases (Dh 64 and 256, float32, end-aligned Sq < Sk, a window of
-     128, ragged tiles), each within its stated tolerance; times of the
-     kernel, the plain version and F.scaled_dot_product_attention (the
-     library yardstick, never used by the port), and the bound;
+     128, ragged tiles, a long 2048-token causal prefill), each within its
+     stated tolerance; times of the kernel, the plain version and
+     F.scaled_dot_product_attention (the library yardstick, never used by
+     the port), and the bound;
   7. the serving path — repro_torch.launch.serve.serve with qwen2-1.5b at
      full width and depth (28 layers, d_model 1536), bf16, attn_impl
      "flash", seeded random parameters, batch 8, prompt 512, 32 greedy
@@ -116,8 +118,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # float32 outputs agree to |d| <= 1e-5 + 1e-5|x|; a bf16 output may round
 # to the neighbouring bf16 (2^-8 relative at most): |d| <= 2e-2 + 1e-2|x|.
 FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+# At 2048 keys a typical |o| is ~0.03-0.05, where a key tile lost from a
+# row would hide under 2e-2; so bf16 rows are also held as vectors,
+# ||d_row|| <= 2^-6 ||o_row||. Rounding P (2^-9 per weight) and the output
+# (half a bf16 step) keeps a row within ~2^-8 of the plain version; losing
+# one 64-key tile of n moves a row by ~8 / sqrt(n) of its norm (0.18 at 2048).
+FLASH_ROW_REL = {torch.bfloat16: 2**-6}
 # (label, B, H, M, Sq, Sk, Dh, dtype, causal, window); the first is the
-# serving prefill's shape and the kernel's JSON record.
+# serving prefill's shape and the kernel's JSON record. bf16 runs the wgmma
+# kernel, float32 the FP32-lane one. "long" (~103 GFLOP of live pairs) is
+# bound by operations: it shows how near the tensor cores' rate the design
+# comes.
 FLASH_CASES = (
     ("prefill", 8, 12, 2, 512, 512, 128, torch.bfloat16, True, None),
     ("dh64", 8, 12, 2, 512, 512, 64, torch.bfloat16, True, None),
@@ -126,7 +137,9 @@ FLASH_CASES = (
     ("end_aligned", 8, 12, 2, 256, 512, 128, torch.bfloat16, True, None),
     ("window128", 8, 12, 2, 512, 512, 128, torch.bfloat16, True, 128),
     ("ragged", 2, 12, 2, 200, 300, 64, torch.float32, False, None),
+    ("long", 8, 12, 2, 2048, 2048, 128, torch.bfloat16, True, None),
 )
+FLASH_PLAIN_REPS = {"long": 3}  # the plain version's timed calls (default 20)
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:28"
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen2-1.5b", 8, 512, 32
 # Prefill logits (bf16 compute) against the replay's at prompt_len - 1 and
@@ -171,6 +184,31 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# A stream sleep ahead of a timed run (~25 ms), so that the host has queued
+# every call before the first one runs.
+SLEEP_CYCLES = 50_000_000
+
+
+def device_host_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn`` over ``reps`` calls, after one
+    warm-up call. Unlike :func:`cuda_ms`, the stream sleeps first, so the
+    CUDA events time the device alone even where a wrapper's host work per
+    call outlasts its kernel; the host clock times the enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0.record()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - h0) * 1e3 / reps
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps, host_ms
 
 
 def visit_inputs(core, person_sus, person_inf, dow, ops):
@@ -361,6 +399,11 @@ def flash_phase(fk, card: str) -> dict:
         if worst > atol:
             raise AssertionError(f"[flash:{label}] kernel != plain: max |d| {err}, "
                                  f"tolerance {atol} + {rtol}|x|")
+        row_rel = float((diff.square().sum(-1).sqrt()
+                         / o_p.float().square().sum(-1).sqrt().clamp_min(1e-30)).max())
+        if row_rel > FLASH_ROW_REL.get(dt, float("inf")):
+            raise AssertionError(f"[flash:{label}] kernel != plain: a row is off by {row_rel} "
+                                 f"of its norm, tolerance {FLASH_ROW_REL[dt]}")
         mask = attention_mask(Sq, Sk, causal, window, "cuda")
         qs = q.view(B, H, Sq, Dh)
         ks = k.view(B, M, Sk, Dh).repeat_interleave(G, dim=1)
@@ -372,19 +415,29 @@ def flash_phase(fk, card: str) -> dict:
         else:  # bottom-right aligned masks: is_causal aligns top-left
             run_lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
         lib_err = float((run_lib().reshape(B * H, Sq, Dh).float() - o_p.float()).abs().max())
-        ms, plain_ms, lib_ms = cuda_ms(run_k, 20), cuda_ms(run_p, 20), cuda_ms(run_lib, 20)
+        ms = cuda_ms(run_k, 20)
+        plain_ms, lib_ms = cuda_ms(run_p, FLASH_PLAIN_REPS.get(label, 20)), cuda_ms(run_lib, 20)
+        device_ms, host_ms = device_host_ms(run_k, 20)
+        lib_device_ms = device_host_ms(run_lib, 20)[0]
         live = int(mask.sum())
         bound_ms, bound_by, flops = flash_bound(q, k, v, o_k, live)
         log(f"[flash:{label}] B={B} H={H} M={M} Sq={Sq} Sk={Sk} Dh={Dh} "
             f"{str(dt).split('.')[-1]} causal={causal} window={window}: kernel within "
-            f"tolerance of plain (max_abs_err={err}, tolerance {atol} + {rtol}|x|); "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+            f"tolerance of plain (max_abs_err={err}, tolerance {atol} + {rtol}|x|, "
+            f"output rms {float(o_p.float().square().mean().sqrt()):.4g}; rows off by "
+            f"{row_rel:.3g} of their norm at most"
+            f"{f', tolerance {FLASH_ROW_REL[dt]:.4g}' if dt in FLASH_ROW_REL else ''}); "
+            f"kernel_ms={ms:.4f} (device alone {device_ms:.4f}, wrapper host "
+            f"{host_ms:.4f} per call) "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} (device alone {lib_device_ms:.4f}) "
             f"(sdpa max |d| vs plain {lib_err:.3g}) bound_ms={bound_ms:.5f} ({bound_by}; "
             f"{flops / 1e9:.3f} GFLOP, live fraction {live / (Sq * Sk):.4f}) "
-            f"{100.0 * bound_ms / ms:.2f}% of bound; {flops / ms / 1e9:.2f} TFLOP/s; {card}")
+            f"{100.0 * bound_ms / ms:.2f}% of bound; {flops / ms / 1e9:.2f} TFLOP/s (device "
+            f"alone {100.0 * bound_ms / device_ms:.2f}%, {flops / device_ms / 1e9:.2f}); {card}")
         if out is None:
             out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=lib_ms)
+                       bound_by=bound_by, library_ms=lib_ms, device_ms=device_ms,
+                       library_device_ms=lib_device_ms)
     return out
 
 
@@ -403,10 +456,10 @@ def device_summary(prof, wall_ms: float, steps: int, label: str, card: str) -> N
     for e in dev:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    fl = by_name.get(next((k for k in by_name if "flash_fwd_kernel" in k), ""), (0, 0.0))
+    fl = by_name.get(next((k for k in by_name if "flash_fwd" in k), ""), (0, 0.0))
     log(f"[profile:{label}] per step (profiler on): wall {wall_ms / steps:.3f} ms, device "
         f"busy {busy / steps:.3f} ms over a span of {span / steps:.3f} ms, idle share "
-        f"{1.0 - busy / span:.4f}; {len(dev) / steps:.1f} device ops; flash_fwd_kernel "
+        f"{1.0 - busy / span:.4f}; {len(dev) / steps:.1f} device ops; flash_fwd "
         f"{fl[0] / steps:.1f} launches, {fl[1] / steps:.4f} ms ({fl[1] / busy:.4f} of "
         f"device time); {card}")
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
@@ -545,13 +598,18 @@ def main() -> int:
             log(f"[build] interactions_kernel<{inst}>: {line.strip()}")
     inst = None
     for line in built[flash_kernel][1].splitlines():
-        m = re.search(r"flash_fwd_kernelI(\w+?)Li(\d+)E", line)
+        m = re.search(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel)I\w*?Li(\d+)E", line)
         if m and "entry function" in line:
-            inst = f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'}, Dh={m.group(2)}"
-            log(f"[build] flash_fwd_kernel<{inst}>: dynamic shared memory "
-                f"{flash_kernel.shared_bytes(int(m.group(2)))} bytes per CTA of 256 threads")
+            wgmma = m.group(1) == "flash_fwd_wgmma_kernel"
+            dt, threads = (torch.bfloat16, 384) if wgmma else (torch.float32, 256)
+            inst = f"{m.group(1)}<{'bf16' if wgmma else 'f32'}, Dh={m.group(2)}>"
+            log(f"[build] {inst}: dynamic shared memory "
+                f"{flash_kernel.shared_bytes(int(m.group(2)), dt)} bytes per CTA of "
+                f"{threads} threads")
         elif inst and ("registers" in line or "spill" in line or "smem" in line):
-            log(f"[build] flash_fwd_kernel<{inst}>: {line.strip()}")
+            log(f"[build] {inst}: {line.strip()}")
+        elif "Performance Loss" in line:  # ptxas names the kernel it warns about
+            log(f"[build] {line.strip()[:240]}")
 
     # ---- phase 3: kernels against their plain versions ----------------------
     stamp("interaction kernels")

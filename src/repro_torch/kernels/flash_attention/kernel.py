@@ -1,16 +1,21 @@
-"""The flash-attention forward kernel: CUDA build, binding, plain version.
+"""The flash-attention forward kernels: CUDA build, binding, plain version.
 
-``csrc/flash_attention.cu`` holds a hand-written Hopper (sm_90a) kernel that
-replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention/kernel.py:28
-_kernel`` (launcher ``flash_attention_bhsd`` :92). It is compiled with
-``nvcc`` at first use (``kernels/build.py``) and called through ``ctypes`` on
-PyTorch's current stream; nothing is built when this module is imported.
+``csrc/flash_attention.cu`` holds hand-written Hopper (sm_90a) kernels that
+replace the Pallas TPU kernel ``src/repro/kernels/flash_attention/kernel.py:28
+_kernel`` (launcher ``flash_attention_bhsd`` :92): for bfloat16, a
+warp-specialised design on ``wgmma`` tensor cores fed by TMA
+(``flash_fwd_wgmma_kernel<Dh>``); for float32, the first FP32-lane design
+(``flash_fwd_kernel<float, Dh>``), since TF32 tensor cores cannot hold the
+float32 tolerance. They are compiled with ``nvcc`` at first use
+(``kernels/build.py``) and called through ``ctypes`` on PyTorch's current
+stream; nothing is built when this module is imported.
 
-:func:`flash_attention_bhsd_cuda` launches it and counts accepted launches in
-``flash_attention_bhsd_cuda.launches``. :func:`flash_attention_bhsd_plain` is
-the plain PyTorch version of the same function: a blockwise online softmax
-over key blocks in the kernel's order, with the same block skip, masks and
-clamp. The CPU path and the tests use it; the card's main path does not.
+:func:`flash_attention_bhsd_cuda` launches them and counts accepted launches
+in ``flash_attention_bhsd_cuda.launches``. :func:`flash_attention_bhsd_plain`
+is the plain PyTorch version of the same function: a blockwise online
+softmax over key blocks in the kernel's order, with the same block skip,
+masks and clamp. The CPU path and the tests use it; the card's main path
+does not.
 
 Both take q (BH, Sq, Dh) and k/v (BH / G, Sk, Dh) with Sq <= Sk; query head
 bh reads key/value head bh // G. Queries are end-aligned to the keys.
@@ -26,18 +31,30 @@ import torch
 from repro_torch.kernels import build as build_lib
 
 SOURCE = build_lib.CSRC / "flash_attention.cu"
-NVCC_FLAGS = build_lib.BASE_FLAGS  # no fast math: expf must underflow to 0
-BLK_Q, BLK_K = 64, 32  # the kernel's query and key tiles (kBQ, kBK)
-HEAD_DIMS = (64, 128, 256)  # the kernel's instantiations
+NVCC_FLAGS = build_lib.BASE_FLAGS  # no fast math: expf, exp2f must underflow to 0
+# Each design's (query, key) tiles: kBQ, kBK (float32) and kWgBQ, kWgBK (bf16).
+TILES = {torch.float32: (64, 32), torch.bfloat16: (128, 64)}
+HEAD_DIMS = (64, 128, 256)  # the kernels' instantiations
 NEG_INF = -1e30  # the reference's masked logit
+SMEM_LIMIT = 232_448  # shared memory one CTA may opt in to on Hopper
+# What the C entry point returns beside CUDA's own errors (csrc kErr*).
+_LAUNCH_ERRORS = {10000: "cuTensorMapEncodeTiled not found",
+                  20000: "too few registers at launch for the roles' setmaxnreg",
+                  20001: "more CTAs than the grid's x dimension takes"}
 
 
-def shared_bytes(Dh: int) -> int:
-    """Dynamic shared memory of one CTA (``smem_bytes<Dh>()`` in the source):
+def shared_bytes(Dh: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA of the design for ``dtype``.
+
+    bf16 (``WgLayout<Dh>::kBytes``): Q (128 rows), two stages of a K and a V
+    tile (64 rows each), all Dh bf16 wide, five 8-byte barriers and 1024 B
+    to align the base to the swizzle atom. float32 (``smem_bytes<Dh>()``):
     the Q and K tiles padded by a column, V, the padded logit tile, and m, l
     and the correction per row, all float32."""
-    return 4 * (BLK_Q * (Dh + 1) + BLK_K * (Dh + 1) + BLK_K * Dh
-                + BLK_Q * (BLK_K + 1) + 3 * BLK_Q)
+    bq, bk = TILES[dtype]
+    if dtype == torch.bfloat16:
+        return 2 * Dh * (bq + 2 * 2 * bk) + 8 * 5 + 1024
+    return 4 * (bq * (Dh + 1) + bk * (Dh + 1) + bk * Dh + bq * (bk + 1) + 3 * bq)
 
 
 def build():
@@ -89,10 +106,15 @@ def flash_attention_bhsd_cuda(q, k, v, *, causal=True, window=None, scale=None):
         raise ValueError(f"the kernel takes CUDA tensors, got {q.device}")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head dim {Dh} not in the kernel's {HEAD_DIMS}")
-    if BH > 65535:
-        raise ValueError(f"BH={BH} exceeds the grid's y limit of 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        if -(-Sq // TILES[q.dtype][0]) * BH > 2**31 - 1:
+            raise ValueError(f"{BH} heads of {Sq} queries exceed the grid's 2**31 - 1 CTAs")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("bf16 q, k, v must be 16-byte aligned (TMA)")
+    elif BH > 65535:
+        raise ValueError(f"BH={BH} exceeds the grid's y limit of 65535")
     scale = Dh**-0.5 if scale is None else scale
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -103,7 +125,10 @@ def flash_attention_bhsd_cuda(q, k, v, *, causal=True, window=None, scale=None):
             int(window or 0), float(scale), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
+        what = _LAUNCH_ERRORS.get(err) or (
+            f"tensor map refused, CUresult {err - 11000}" if 11000 <= err < 12000
+            else f"CUDA error {err}")
+        raise RuntimeError(f"flash attention kernel launch failed: {what}")
     flash_attention_bhsd_cuda.launches += 1
     return out
 
@@ -112,13 +137,16 @@ flash_attention_bhsd_cuda.launches = 0
 
 
 def flash_attention_bhsd_plain(q, k, v, *, causal=True, window=None, scale=None,
-                               blk_q=BLK_Q, blk_k=BLK_K):
+                               blk_q=None, blk_k=None):
     """The kernel's function in plain PyTorch, on any device: f32 logits of
     f32 ``q * scale`` and ``k``, an online softmax over key blocks of
-    ``blk_k`` in order per query block of ``blk_q``, blocks the masks leave
-    empty skipped, masked logits -1e30, ``acc / max(l, 1e-30)`` cast to q's
-    dtype. Any head dim; the last blocks may be short."""
+    ``blk_k`` in order per query block of ``blk_q`` (by default the tiles of
+    the kernel for q's dtype), blocks the masks leave empty skipped, masked
+    logits -1e30, ``acc / max(l, 1e-30)`` cast to q's dtype. Any head dim;
+    the last blocks may be short."""
     BH, G, Sq, Sk, Dh = check_inputs(q, k, v, window)
+    blk_q = blk_q or TILES[q.dtype][0]
+    blk_k = blk_k or TILES[q.dtype][1]
     scale = Dh**-0.5 if scale is None else scale
     dev = q.device
     off = Sk - Sq

@@ -49,16 +49,19 @@ def _np(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else x.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("tiles", ["reference", "kernel"])
+@pytest.mark.parametrize("tiles", ["reference", "kernel", "wgmma"])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
 def test_plain_matches_reference_kernel(case, tiles):
-    """The plain version, at the case's blocks and at the CUDA kernel's
-    tiles, against the Pallas kernel at the case's blocks."""
+    """The plain version, at the case's blocks, at its default tiles (the
+    CUDA kernel's for the case's dtype) and at the bf16 wgmma design's
+    128 x 64 tiles, against the Pallas kernel at the case's blocks."""
     BH, Sq, Sk, Dh, causal, window, dtype, blk = case
     q, k, v = (_pair(a, dtype) for a in _draw(0, (BH, Sq, Dh), (BH, Sk, Dh), (BH, Sk, Dh)))
     want = flash_attention_bhsd(q[0], k[0], v[0], causal=causal, window=window,
                                 blk_q=blk, blk_k=blk)
-    blocks = dict(blk_q=blk, blk_k=blk) if tiles == "reference" else {}
+    blq, blk_ = t_kernel.TILES[torch.bfloat16]
+    blocks = {"reference": dict(blk_q=blk, blk_k=blk), "kernel": {},
+              "wgmma": dict(blk_q=blq, blk_k=blk_)}[tiles]
     got = t_kernel.flash_attention_bhsd_plain(q[1], k[1], v[1], causal=causal,
                                               window=window, **blocks)
     assert got.dtype == q[1].dtype and got.shape == (BH, Sq, Dh)
@@ -78,7 +81,7 @@ def test_block_size_invariance():
     """The blocking changes only the summation order (f32, atol 1e-5)."""
     q, k, v = (torch.as_tensor(a) for a in _draw(2, (2, 256, 64), (2, 256, 64), (2, 256, 64)))
     outs = [t_kernel.flash_attention_bhsd_plain(q, k, v, blk_q=bq, blk_k=bk)
-            for bq, bk in ((32, 32), (64, 64), (128, 128), (64, 32), (256, 16))]
+            for bq, bk in ((32, 32), (64, 64), (128, 128), (64, 32), (256, 16), (128, 64))]
     for o in outs[1:]:
         np.testing.assert_allclose(o.numpy(), outs[0].numpy(), atol=1e-5, rtol=0)
 
@@ -124,6 +127,30 @@ def test_fully_masked_rows_in_live_blocks():
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(  # window 1: each query sees only its own key
         t_kernel.flash_attention_bhsd_plain(q, k, v, window=1).numpy(), v.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("Dh", t_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_shared_bytes_fit_a_cta(dtype, Dh):
+    """Each design's shared memory at each head dim fits what one CTA may
+    opt in to on Hopper (232,448 bytes); the bf16 design's base and its K/V
+    tiles lie on 1024-byte swizzle atoms."""
+    got = t_kernel.shared_bytes(Dh, dtype)
+    assert 0 < got <= t_kernel.SMEM_LIMIT == 232_448
+    if dtype == torch.bfloat16:
+        bq, bk = t_kernel.TILES[dtype]
+        assert (bq * Dh * 2) % 1024 == 0 and (bk * Dh * 2) % 1024 == 0
+
+
+def test_plain_default_tiles_follow_the_dtype():
+    """Without blocks the plain version takes its kernel's tiles: the same
+    result as asking for them (bitwise), for float32 and bf16."""
+    q, k, v = (torch.as_tensor(a) for a in _draw(7, (2, 200, 64), (1, 300, 64), (1, 300, 64)))
+    for dtype, (bq, bk) in t_kernel.TILES.items():
+        a, b, c = (x.to(dtype) for x in (q, k, v))
+        got = t_kernel.flash_attention_bhsd_plain(a, b, c, window=70)
+        want = t_kernel.flash_attention_bhsd_plain(a, b, c, window=70, blk_q=bq, blk_k=bk)
+        assert torch.equal(got, want)
 
 
 def test_wrappers_refuse_what_they_do_not_take():

@@ -203,10 +203,14 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
 @pytest.mark.parametrize("Sq,Sk,causal,window", [(128, 128, True, None),
                                                  (100, 173, True, None),
                                                  (96, 96, True, 20),
-                                                 (70, 90, False, None)])
+                                                 (70, 90, False, None),
+                                                 (200, 300, True, None),
+                                                 (200, 300, False, None)])
 def test_flash_kernel_matches_plain(cuda, dtype, Dh, Sq, Sk, causal, window):
-    """Full and ragged tiles, end-aligned queries, a window narrower than a
-    key tile, bidirectional; 6 query heads over 2 key/value heads."""
+    """Full and ragged tiles (200 x 300: Sq not a multiple of the bf16
+    design's 128 query rows, Sk not of its 64 keys), end-aligned queries, a
+    window narrower than a key tile, bidirectional; 6 query heads over 2
+    key/value heads. bf16 runs the wgmma kernel, float32 the FP32-lane one."""
     g = torch.Generator(device=cuda).manual_seed(Dh + Sq)
     draw = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = draw(6, Sq, Dh), draw(2, Sk, Dh), draw(2, Sk, Dh)
@@ -217,6 +221,34 @@ def test_flash_kernel_matches_plain(cuda, dtype, Dh, Sq, Sk, causal, window):
     want = f_kernel.flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("Dh", f_kernel.HEAD_DIMS)
+def test_flash_kernel_serving_shape(cuda, Dh):
+    """One sequence of the serving prefill's shape: Sq = Sk = 512, 12 query
+    heads over 2 key/value heads (G = 6), bf16, causal."""
+    g = torch.Generator(device=cuda).manual_seed(Dh)
+    draw = lambda *s: torch.randn(s, generator=g, device=cuda).bfloat16()
+    q, k, v = draw(12, 512, Dh), draw(2, 512, Dh), draw(2, 512, Dh)
+    got = f_kernel.flash_attention_bhsd_cuda(q, k, v)
+    want = f_kernel.flash_attention_bhsd_plain(q, k, v)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_grid_beyond_the_sms(cuda, causal):
+    """More CTAs than the card has SMs (8 x 12 heads of 512 queries: 384
+    CTAs of 128 rows), so CTAs wait for a free SM and run in several waves."""
+    g = torch.Generator(device=cuda).manual_seed(int(causal))
+    draw = lambda *s: torch.randn(s, generator=g, device=cuda).bfloat16()
+    q, k, v = draw(96, 512, 128), draw(16, 512, 128), draw(16, 512, 128)
+    ctas = -(-512 // f_kernel.TILES[torch.bfloat16][0]) * 96
+    assert ctas > torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = f_kernel.flash_attention_bhsd_cuda(q, k, v, causal=causal)
+    want = f_kernel.flash_attention_bhsd_plain(q, k, v, causal=causal)
+    atol, rtol = FLASH_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
@@ -237,6 +269,9 @@ def test_flash_wrapper_refuses_bad_inputs(cuda):
                                            k, k)
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         f_kernel.flash_attention_bhsd_cuda(q.half(), k.half(), k.half())
+    odd = torch.empty(4 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(4, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # TMA needs aligned rows
+        f_kernel.flash_attention_bhsd_cuda(odd, k.bfloat16(), k.bfloat16())
     assert f_kernel.flash_attention_bhsd_cuda.launches == before
 
 

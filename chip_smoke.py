@@ -2,6 +2,11 @@
 """Smoke test of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --interactions-only SRC_DIR
+
+The second form runs phases 1 and 3 alone on the interaction kernels of the
+checkout whose src/ directory is given (an earlier commit's, unpacked with
+git archive, to time its kernels beside this one's in one call).
 
 Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
@@ -12,10 +17,14 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      the same three), both at once, from the checkout's sources and prints
      ptxas's registers / shared memory / spills for each;
   3. kernels against their plain versions at md-mini day shapes (b=128) in
-     three states (early, mid-epidemic, everyone infectious and
-     susceptible), with a tracing-source vector on ~1% of the infectious
-     visits: each of the four kernels bitwise equal to its plain version,
-     padded bitwise equal to compacted, times (CUDA events), the bound;
+     four states (early, mid-epidemic, everyone infectious and susceptible,
+     and "shuffled": the mid inputs with the visits permuted inside each
+     block, so a location's visits are not contiguous), with a
+     tracing-source vector on ~1% of the infectious visits: each of the four
+     kernels bitwise equal to its plain version, padded bitwise equal to
+     compacted; the pair counts; times by CUDA events around back-to-back
+     calls and device alone (the stream asleep first), the wrapper's host
+     time per call, and the bound under this model and PR 11-14's;
   4. the main path — EngineCore.single on md-mini, covid, seed 0, 200 days
      under torch.use_deterministic_algorithms(True), the day loop under
      torch.cuda.set_sync_debug_mode("error"): one kernel launch per day,
@@ -81,22 +90,31 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12 / 2
 PEAK_INT32_OPS_PER_S = 67e12 / 4
 PEAK_ISSUE_PER_S = 67e12 / 2
-# The least work the function needs (csrc/interactions.cu), as
-# (integer, float) operations. Every pair of a live tile pays the validity
-# test: pid >= 0, same loc, different pid (integer) and the overlap's min,
-# max, subtract and > 0 (float). Only a valid pair pays the rest: min/max of
-# the pids and the pick of their hashed words (4), three pair-dependent
-# words of the hash fold (3 x 9: xor, then the murmur3 finalizer), the
-# uniform's shift (1) and the count (2) in integers; the uniform's
-# convert/multiply/add (3), the compare with p (1), rho's three products
-# and sum (4) and inf > 0 (1) in floats. The inner hash of a word that is
-# one visit's id (pid twice, loc) is per visit (3 x 9), the day's hash
-# prefix is per day. The traced arity adds the src > 0 test and the count
-# (2 integer operations) per valid pair.
-OPS_PER_PAIR = (3, 4)
-OPS_PER_VALID_PAIR = (34, 9)
-OPS_PER_TRACED_VALID_PAIR = (2, 0)
+# The least work the function needs on this data (csrc/interactions.cu), as
+# (integer, float) operations. A candidate is a same-location pair of a row
+# visit with pid >= 0 and sus != 0 and a column visit with pid >= 0 and
+# inf != 0 (the rest can change no output): it pays the validity test, the
+# pid compare (integer) and the overlap's min, max, subtract and > 0
+# (float). A contributing pair (a valid candidate) pays the draw: the pick
+# of the min pid's hash state and the max pid's word (compare and two
+# selects), two xors, two murmur3 finalizers (8 each), the shift and the
+# threshold compare, all integer. A contact pays rho's two products and its
+# sum (float) and the count (integer); traced, also src > 0 and that count.
+# Each candidate visit of a live tile pays its hash words once: the min-pid
+# state and the max-pid word (three finalizers, two adds and an xor).
+OPS_PER_PAIR = (1, 4)
+OPS_PER_VALID_PAIR = (23, 0)
+OPS_PER_CONTACT = (1, 3)
+OPS_PER_TRACED_CONTACT = (1, 1)
 OPS_PER_VISIT = (27, 0)
+# The model of PR 11-14, printed beside it: the validity test (3 integer, 4
+# float) for every pair of a live tile, the draw and the rest for every
+# valid pair (34 integer, 9 float; traced +2 integer), and the three words
+# of each visit (27 integer).
+OLD_OPS_PER_PAIR = (3, 4)
+OLD_OPS_PER_VALID_PAIR = (34, 9)
+OLD_OPS_PER_TRACED_VALID_PAIR = (2, 0)
+OLD_OPS_PER_VISIT = (27, 0)
 # The four instantiations: wrapper name in kernel.py, backend, traced?,
 # the Pallas kernel each replaces.
 KERNELS = {
@@ -229,42 +247,77 @@ def visit_inputs(core, person_sus, person_inf, dow, ops):
             ops.row_has_susceptible(sus_v, eff, nb, BLOCK), meta)
 
 
-def pair_counts(args, rows, cols):
-    """(pairs, valid pairs) in the live tiles ``rows``/``cols``: the
-    data-dependent work."""
-    pid, loc, start, end = args[:4]
+def pair_counts(args, rows, cols, contact_uniform) -> dict:
+    """The data-dependent work in the live tiles ``rows``/``cols``: their
+    pairs, same-location pairs, candidates (same location, row pid >= 0 and
+    sus != 0, column pid >= 0 and inf != 0), valid pairs, contributing pairs
+    (valid candidates), contacts among them, and the candidate visits whose
+    hash words a kernel needs (rows of the live row blocks, columns of the
+    live column blocks)."""
+    pid, loc, start, end, p_loc, sus, inf = args[:7]
+    meta = args[-1]
     rows, cols = rows.long(), cols.long()
     blk = lambda a, idx: a.view(-1, BLOCK)[idx]
-    valid = 0
+    rok = (pid >= 0) & (sus != 0)
+    cok = (pid >= 0) & (inf != 0)
+    n = dict(pairs=rows.shape[0] * BLOCK * BLOCK, same_loc=0, candidates=0, valid=0,
+             contributing=0, contacts=0)
     for s in range(0, rows.shape[0], 256):
         r, c = rows[s:s + 256], cols[s:s + 256]
         pr, pc = blk(pid, r)[:, :, None], blk(pid, c)[:, None, :]
+        lr = blk(loc, r)[:, :, None]
         ov = (torch.minimum(blk(end, r)[:, :, None], blk(end, c)[:, None, :])
               - torch.maximum(blk(start, r)[:, :, None], blk(start, c)[:, None, :]))
-        v = ((pr >= 0) & (pc >= 0) & (pr != pc) & (ov > 0)
-             & (blk(loc, r)[:, :, None] == blk(loc, c)[:, None, :]))
-        valid += int(v.sum())
-    return rows.shape[0] * BLOCK * BLOCK, valid
+        same = lr == blk(loc, c)[:, None, :]
+        v = same & (pr >= 0) & (pc >= 0) & (pr != pc) & (ov > 0)
+        both = blk(rok, r)[:, :, None] & blk(cok, c)[:, None, :]
+        contrib = v & both
+        u = contact_uniform(meta[0], meta[1], pr, pc, lr)
+        n["same_loc"] += int(same.sum())
+        n["candidates"] += int((same & both).sum())
+        n["valid"] += int(v.sum())
+        n["contributing"] += int(contrib.sum())
+        n["contacts"] += int((contrib & (u < blk(p_loc, r)[:, :, None])).sum())
+    n["word_visits"] = (int(blk(rok, torch.unique(rows)).sum())
+                        + int(blk(cok, torch.unique(cols)).sum()))
+    return n
 
 
-def bound(inputs, outs, pairs: int, valid: int, traced: bool):
-    """Least time the card could take: inputs read once and outputs written
-    once at peak bandwidth, against this data's operations at peak rate.
-    The INT32 and FP32 lanes run side by side, so the operations take the
-    longest of integers at the INT32 rate, floats at the FP32 rate and both
-    at the issue rate."""
-    nbytes = sum(a.numel() * a.element_size() for a in inputs)
-    nbytes += sum(o.numel() * o.element_size() for o in outs)
-    per_valid = [a + (b if traced else 0)
-                 for a, b in zip(OPS_PER_VALID_PAIR, OPS_PER_TRACED_VALID_PAIR)]
-    visits = inputs[0].numel()
-    n_int, n_float = (pairs * a + valid * b + visits * c for a, b, c in
-                      zip(OPS_PER_PAIR, per_valid, OPS_PER_VISIT))
+def _times(nbytes: float, n_int: float, n_float: float):
+    """Bytes at peak bandwidth against operations at peak rate: the INT32 and
+    FP32 lanes run side by side, so the operations take the longest of
+    integers at the INT32 rate, floats at the FP32 rate and both at the
+    issue rate. Returns (bound ms, "bytes" or "operations")."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 1e3 * max(n_int / PEAK_INT32_OPS_PER_S, n_float / PEAK_FP32_OPS_PER_S,
                       (n_int + n_float) / PEAK_ISSUE_PER_S)
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, n_int, n_float
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def io_bytes(inputs, outs) -> int:
+    """Inputs read once and outputs written once."""
+    return sum(a.numel() * a.element_size() for a in (*inputs, *outs))
+
+
+def bound(inputs, outs, n: dict, traced: bool):
+    """Least time the card could take under the model above. Returns
+    (ms, bound_by, integer operations, float operations)."""
+    per_contact = [a + (b if traced else 0)
+                   for a, b in zip(OPS_PER_CONTACT, OPS_PER_TRACED_CONTACT)]
+    n_int, n_float = (n["candidates"] * a + n["contributing"] * b + n["contacts"] * c
+                      + n["word_visits"] * d for a, b, c, d in
+                      zip(OPS_PER_PAIR, OPS_PER_VALID_PAIR, per_contact, OPS_PER_VISIT))
+    return (*_times(io_bytes(inputs, outs), n_int, n_float), n_int, n_float)
+
+
+def bound_old(inputs, outs, n: dict, traced: bool):
+    """The bound under PR 11-14's model: (ms, bound_by)."""
+    per_valid = [a + (b if traced else 0)
+                 for a, b in zip(OLD_OPS_PER_VALID_PAIR, OLD_OPS_PER_TRACED_VALID_PAIR)]
+    visits = inputs[0].numel()
+    n_int, n_float = (n["pairs"] * a + n["valid"] * b + visits * c for a, b, c in
+                      zip(OLD_OPS_PER_PAIR, per_valid, OLD_OPS_PER_VISIT))
+    return _times(io_bytes(inputs, outs), n_int, n_float)
 
 
 def profile_days(core, state, card: str, label: str) -> None:
@@ -558,11 +611,152 @@ def serve_phase(fk, card: str) -> int:
     return launches[0]
 
 
+def interaction_states(core, covid, ops):
+    """The phase-3 inputs: label -> (wrapper args, tracing sources). Person
+    channels early (ten presymptomatic seeds), mid (states drawn from numpy)
+    and all (everyone infectious and susceptible), each with a tracing-source
+    vector on about 1% of the infectious visits; and "shuffled", the mid
+    inputs with the visits permuted inside each block (numpy seed 1), so a
+    location's visits are no longer contiguous, on the same schedule."""
+    P = core.pop.num_people
+    dev = core.device
+    rs = np.random.default_rng(0)
+    tables = (torch.as_tensor(covid.susceptibility, device=dev),
+              torch.as_tensor(covid.infectivity, device=dev))
+    early = np.zeros(P, np.int32)  # everyone S, ten seeds presymptomatic
+    early[rs.choice(P, 10, replace=False)] = covid.state_index("Ipre")
+    mid = rs.choice(covid.num_states, size=P,
+                    p=[0.45, 0.1, 0.1, 0.15, 0.1, 0.1]).astype(np.int32)
+    beta_sus, beta_inf = core.params.beta_sus, core.params.beta_inf
+    channels = {}
+    for label, health in (("early", early), ("mid", mid)):
+        h = torch.as_tensor(health, device=dev).long()
+        channels[label] = (tables[0][h] * beta_sus, tables[1][h] * beta_inf)
+    channels["all"] = (beta_sus, beta_inf)
+    states = {}
+    for label, (ps, pi) in channels.items():
+        args = visit_inputs(core, ps, pi, 0, ops)
+        infectious = (args[6] > 0).cpu().numpy()
+        src = torch.as_tensor(
+            (infectious & (rs.random(infectious.shape[0]) < 0.01)).astype(np.float32),
+            device=dev)
+        states[label] = (args, src)
+    args, src = states["mid"]
+    V = args[0].shape[0]
+    perm = np.random.default_rng(1).permuted(
+        np.arange(V).reshape(-1, BLOCK), axis=1).reshape(-1)
+    perm = torch.as_tensor(perm, device=dev)
+    vis = [a[perm] for a in args[:7]]
+    nb = V // BLOCK
+    states["shuffled"] = ((*vis, *args[7:11], ops.col_has_infectious(vis[6], vis[0], nb, BLOCK),
+                           ops.row_has_susceptible(vis[5], vis[0], nb, BLOCK), args[13]),
+                          src[perm])
+    return states
+
+
+def interaction_phase(core, covid, kernel, ops, wrappers, card: str) -> dict:
+    """Each of the four interaction kernels against its plain version in
+    every state of :func:`interaction_states` (bitwise, and padded against
+    compacted), timed on both timers, with the bound under both models.
+    Returns kernel -> state -> record."""
+    from repro_torch.kernels.interactions.ref import contact_uniform
+
+    records = {k: {} for k in KERNELS}
+    plain = {"pallas-compact": kernel.interactions_compact_plain,
+             "pallas": kernel.interactions_padded_plain}
+    for label, (args, src) in interaction_states(core, covid, ops).items():
+        rc = ops.compact_schedule(args[7], args[8], *args[10:13])
+        n_live = int(rc[3][0])
+        n = pair_counts(args, rc[0][:n_live], rc[1][:n_live], contact_uniform)
+        log(f"[kernel:{label}] live_tiles={n_live} pairs={n['pairs']} "
+            f"same_location={n['same_loc']} candidates={n['candidates']} "
+            f"valid={n['valid']} contributing={n['contributing']} "
+            f"contacts={n['contacts']} word_visits={n['word_visits']}")
+        kargs = {"pallas-compact": args[:7] + rc + args[11:], "pallas": args}
+        outs = {}
+        for kname, (wname, backend, traced, _) in KERNELS.items():
+            ka = kargs[backend]
+            kw = dict(block_size=BLOCK, src_val=src) if traced else dict(block_size=BLOCK)
+            run_k = lambda: wrappers[kname](*ka, **kw)
+            run_p = lambda: plain[backend](*ka, **kw)
+            out_k, out_p = run_k(), run_p()
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(out_k, out_p)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"[{label}] {kname} output {i} != plain")
+            outs[kname] = out_k
+            err = float((out_k[0] - out_p[0]).abs().max())
+            ms = cuda_ms(run_k, 50)
+            device_ms, host_ms = device_host_ms(run_k, 50)
+            plain_ms = cuda_ms(run_p, 3)
+            inputs = list(ka) + ([src] if traced else [])
+            bound_ms, bound_by, n_int, n_float = bound(inputs, out_k, n, traced)
+            old_ms, old_by = bound_old(inputs, out_k, n, traced)
+            wrap_ms = cuda_ms(lambda: (ops.interactions_auto_traced(
+                *args, backend=backend, **kw) if traced else ops.interactions_auto_edges(
+                *args, backend=backend, block_size=BLOCK)), 50)
+            records[kname][label] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by,
+                                         max_abs_err=err)
+            extra = f" traced={int(out_k[2].sum())}" if traced else ""
+            log(f"[kernel:{label}] {kname} bitwise equal to plain; "
+                f"int_ops={n_int} float_ops={n_float} contacts={int(out_k[1].sum())}"
+                f"{extra} kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
+                f"host_ms={host_ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
+                f"bound_ms={bound_ms:.5f} ({bound_by}; {100.0 * bound_ms / device_ms:.2f}% "
+                f"device alone) old_model_bound_ms={old_ms:.5f} ({old_by}; "
+                f"{100.0 * old_ms / device_ms:.2f}%) max_abs_err={err}; {card}")
+        # Padded against compacted: the same live tiles in the same order.
+        for a, b in (("interactions_padded", "interactions_compact"),
+                     ("interactions_padded_traced", "interactions_compact_traced")):
+            for i in range(len(outs[a])):
+                if not torch.equal(outs[a][i], outs[b][i]):
+                    raise AssertionError(f"[{label}] {a} output {i} != {b}")
+        log(f"[kernel:{label}] padded bitwise equal to compacted, untraced and traced; "
+            f"sources={int(src.sum())}")
+    return records
+
+
+def interactions_only(src: str) -> int:
+    """Phases 1 and 3 alone, on the interaction kernels of the checkout whose
+    ``src`` directory is given (its own build, wrappers and plain versions,
+    this script's inputs, timers and bounds): the way to time an earlier
+    commit's kernels beside this one's in one call."""
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.configs import get_epidemic
+    from repro_torch.core import disease as disease_lib
+    from repro_torch.core import transmission as tx_lib
+    from repro_torch.engine import EngineCore
+    from repro_torch.kernels.interactions import kernel, ops
+
+    card = card_line()
+    log(f"[device] {card}")
+    log(f"[interactions-only] kernels from {os.path.abspath(src)}")
+    lib, report = kernel.build()
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+    epi = get_epidemic(DATASET)
+    pop = epi.build()
+    covid = disease_lib.covid_model()
+    core = EngineCore.single(pop, covid, tx_lib.TransmissionModel(tau=epi.tau), seed=0,
+                             block_size=BLOCK, device="cuda")
+    wrappers = {k: getattr(kernel, v[0]) for k, v in KERNELS.items()}
+    records = interaction_phase(core, covid, kernel, ops, wrappers, card)
+    log(json.dumps({"interactions": records}))
+    return 0
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--interactions-only":
+        return interactions_only(sys.argv[2])
+    if len(sys.argv) != 1:
+        print("usage: chip_smoke.py [--interactions-only SRC_DIR]", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
     from repro_torch.core import disease as disease_lib
@@ -589,6 +783,8 @@ def main() -> int:
     for m, (lib, _) in built.items():
         log(f"[build] {os.path.relpath(m.SOURCE, ROOT)} -> {os.path.relpath(lib, ROOT)}")
     ptxas = built[kernel][1]
+    log(f"[build] interactions_kernel: {kernel.threads(BLOCK)} threads per CTA at "
+        f"b={BLOCK}, dynamic shared memory {kernel.shared_bytes(BLOCK)} bytes")
     inst = None
     for line in ptxas.splitlines():
         m = re.search(r"interactions_kernelILb([01])ELb([01])E", line)
@@ -626,72 +822,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     P = pop.num_people
-    dev = core.device
-    rs = np.random.default_rng(0)
-    tables = (torch.as_tensor(covid.susceptibility, device=dev),
-              torch.as_tensor(covid.infectivity, device=dev))
-    early = np.zeros(P, np.int32)  # everyone S, ten seeds presymptomatic
-    early[rs.choice(P, 10, replace=False)] = covid.state_index("Ipre")
-    mid = rs.choice(covid.num_states, size=P,
-                    p=[0.45, 0.1, 0.1, 0.15, 0.1, 0.1]).astype(np.int32)
-    beta_sus, beta_inf = core.params.beta_sus, core.params.beta_inf
-    states = {}
-    for label, health in (("early", early), ("mid", mid)):
-        h = torch.as_tensor(health, device=dev).long()
-        states[label] = (tables[0][h] * beta_sus, tables[1][h] * beta_inf)
-    states["all"] = (beta_sus, beta_inf)  # everyone infectious and susceptible
-
-    records = {k: {} for k in KERNELS}
-    for label, (ps, pi) in states.items():
-        args = visit_inputs(core, ps, pi, 0, ops)
-        # Tracing sources: about 1% of the infectious visits, from numpy.
-        infectious = (args[6] > 0).cpu().numpy()
-        src = torch.as_tensor(
-            (infectious & (rs.random(infectious.shape[0]) < 0.01)).astype(np.float32),
-            device=dev)
-        rc = ops.compact_schedule(args[7], args[8], *args[10:13])
-        n_live = int(rc[3][0])
-        pairs, valid = pair_counts(args, rc[0][:n_live], rc[1][:n_live])
-        kargs = {"pallas-compact": args[:7] + rc + args[11:], "pallas": args}
-        plain = {"pallas-compact": kernel.interactions_compact_plain,
-                 "pallas": kernel.interactions_padded_plain}
-        outs = {}
-        for kname, (wname, backend, traced, _) in KERNELS.items():
-            ka = kargs[backend]
-            kw = dict(block_size=BLOCK, src_val=src) if traced else dict(block_size=BLOCK)
-            run_k = lambda: wrappers[kname](*ka, **kw)
-            run_p = lambda: plain[backend](*ka, **kw)
-            out_k, out_p = run_k(), run_p()
-            torch.cuda.synchronize()
-            for i, (a, b) in enumerate(zip(out_k, out_p)):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"[{label}] {kname} output {i} != plain")
-            outs[kname] = out_k
-            err = float((out_k[0] - out_p[0]).abs().max())
-            ms = cuda_ms(run_k, 50)
-            plain_ms = cuda_ms(run_p, 3)
-            inputs = list(ka) + ([src] if traced else [])
-            bound_ms, bound_by, n_int, n_float = bound(inputs, out_k, pairs, valid, traced)
-            wrap_ms = cuda_ms(lambda: (ops.interactions_auto_traced(
-                *args, backend=backend, **kw) if traced else ops.interactions_auto_edges(
-                *args, backend=backend, block_size=BLOCK)), 50)
-            records[kname][label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                         bound_by=bound_by, max_abs_err=err)
-            extra = f" traced={int(out_k[2].sum())}" if traced else ""
-            log(f"[kernel:{label}] {kname} bitwise equal to plain; "
-                f"live_tiles={n_live} pairs={pairs} valid_pairs={valid} "
-                f"int_ops={n_int} float_ops={n_float} contacts={int(out_k[1].sum())}"
-                f"{extra} kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} "
-                f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} ({bound_by}) "
-                f"max_abs_err={err}")
-        # Padded against compacted: the same live tiles in the same order.
-        for a, b in (("interactions_padded", "interactions_compact"),
-                     ("interactions_padded_traced", "interactions_compact_traced")):
-            for i in range(len(outs[a])):
-                if not torch.equal(outs[a][i], outs[b][i]):
-                    raise AssertionError(f"[{label}] {a} output {i} != {b}")
-        log(f"[kernel:{label}] padded bitwise equal to compacted, untraced and traced; "
-            f"sources={int(src.sum())}")
+    records = interaction_phase(core, covid, kernel, ops, wrappers, card)
 
     # ---- phase 4: the main path -------------------------------------------
     stamp("main path")
@@ -814,6 +945,7 @@ def main() -> int:
             "launches": main_launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in records[kname].values()),
             "ms": rec["ms"],
+            "device_ms": rec["device_ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],

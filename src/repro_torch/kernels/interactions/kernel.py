@@ -18,6 +18,10 @@ interface at first use (into ``build/`` beside the package's ``csrc/``,
 keyed by a hash of the source and flags) and called through ``ctypes`` on
 PyTorch's current stream. Nothing here is imported or built when the module
 is imported. Each wrapper counts its own launches in ``<wrapper>.launches``.
+A launch has one CTA per schedule entry, of :func:`threads` threads; the
+outputs are views of one zeroed buffer (one fill per call). The source's
+header states the design: the hoisted hash, the draw only for pairs that
+can count, and why leaving the other terms out keeps every output bitwise.
 
 :func:`interactions_compact_plain` and :func:`interactions_padded_plain` are
 the plain PyTorch versions: the same inputs, the same per-tile
@@ -61,9 +65,26 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     fn = lib.interactions_launch
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.interactions_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.interactions_shared_bytes.restype = ctypes.c_longlong
     return lib
+
+
+# Tiles a CTA stages at once: it has TILES_PER_GROUP * block_size threads
+# (at most 1024), and all of them walk the group's candidate pairs.
+TILES_PER_GROUP = 2
+
+
+def threads(block_size: int) -> int:
+    """The CTA's thread count for tiles of ``block_size``."""
+    return max(1, min(TILES_PER_GROUP, 1024 // block_size)) * block_size
+
+
+def shared_bytes(block_size: int) -> int:
+    """Dynamic shared memory per CTA, from the built library."""
+    return _library().interactions_shared_bytes(block_size, threads(block_size))
 
 
 _VISITS = ("pid", "loc", "start", "end", "p_loc", "sus_val", "inf_val")
@@ -76,7 +97,7 @@ _FLOAT = ("start", "end", "p_loc", "sus_val", "inf_val", "src_val")
 
 def _launch(args, src_val, *, padded: bool, block_size: int):
     """Check the wrapper's positional ``args`` (and ``src_val`` for the
-    traced arity), allocate zeroed outputs and launch the instantiation on
+    traced arity), allocate the zeroed outputs and launch the instantiation on
     the current stream. Raises on inputs the kernel does not take, and if
     the launch is refused. Returns ``(acc, cnt, trc or None, edges or
     None)``."""
@@ -112,20 +133,25 @@ def _launch(args, src_val, *, padded: bool, block_size: int):
             or a["meta"].shape != (2,)):
         raise ValueError("block flags must be (V // b,) and meta (2,)")
 
-    dev = pid.device
-    acc = torch.zeros((V,), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((V,), dtype=torch.int32, device=dev)
-    trc = None if src_val is None else torch.zeros((V,), dtype=torch.int32, device=dev)
-    edges = None if padded else torch.zeros((), dtype=torch.int64, device=dev)
+    # One zeroed buffer holds every output (one fill, not four): acc, cnt,
+    # trc when traced, then the edges slot (8-byte aligned: V is even), as
+    # non-overlapping views.
+    nout = 2 if src_val is None else 3
+    buf = torch.zeros((nout * V + 2,), dtype=torch.int32, device=pid.device)
+    acc = buf[:V].view(torch.float32)
+    cnt = buf[V:2 * V]
+    trc = None if src_val is None else buf[2 * V:3 * V]
+    edges = None if padded else buf[nout * V:].view(torch.int64).view(())
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(pid.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().interactions_launch(
             int(src_val is not None), int(padded),
             *(ptr(a[n]) for n in _VISITS), ptr(src_val), *(ptr(a[n]) for n in sched[:3]),
             ptr(a.get("pair_active")), ptr(a.get("n_live")),
             *(ptr(a[n]) for n in _FLAGS),
-            acc.data_ptr(), cnt.data_ptr(), ptr(trc), ptr(edges), NP, b, stream,
+            acc.data_ptr(), cnt.data_ptr(), ptr(trc), ptr(edges), NP, b, threads(b),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"interactions kernel launch failed: CUDA error {err}")

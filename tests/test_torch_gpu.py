@@ -192,6 +192,142 @@ def test_tti_path_launches_the_traced_kernel_daily_without_sync(cuda):
     assert h[:, 7].sum() > 0  # tests were used
 
 
+def _full_schedule(nb):
+    """Every block pair, row-major: the schedule of a layout with no runs."""
+    rows = torch.arange(nb, dtype=torch.int32).repeat_interleave(nb)
+    cols = torch.arange(nb, dtype=torch.int32).repeat(nb)
+    start = (cols == 0).to(torch.int32)
+    return rows, cols, start, torch.ones_like(rows)
+
+
+def _with_schedule(args, sched, b):
+    """``args`` with another (row, col, row_start, pair_active) schedule and
+    block flags recomputed from its channels."""
+    pid, sus_v, inf_v = args[0], args[5], args[6]
+    nb = pid.shape[0] // b
+    return (*args[:7], *sched, t_ops.col_has_infectious(inf_v, pid, nb, b),
+            t_ops.row_has_susceptible(sus_v, pid, nb, b), args[13])
+
+
+def _layout_case(kind):
+    """Layouts that break the redesigned kernels' shortcuts, as (args, src,
+    b): visits shuffled inside each block; one location filling whole
+    blocks (a band of off-diagonal tiles, longer than a group of tiles);
+    locations alternating inside a block (every run of length 1, walked on
+    the full schedule); rows without susceptibility and columns without
+    infectivity inside live tiles; and one row run longer than a CTA's
+    schedule chunk (entries k .. k + T - 1)."""
+    if kind == "shuffled":
+        args, src = _case(2, 128, 20000, 1500, 6000)
+        V = args[0].shape[0]
+        perm = np.random.default_rng(5).permuted(np.arange(V).reshape(-1, 128), axis=1)
+        perm = torch.as_tensor(perm.reshape(-1))
+        return (*(a[perm] for a in args[:7]), *args[7:]), src[perm], 128
+    if kind == "band":
+        rs = np.random.default_rng(6)
+        n = 9 * 64 + 10  # one location over ten blocks, then a small one
+        person = rs.integers(0, 400, n)
+        loc = np.where(np.arange(n) < 9 * 64 + 3, 0, 1)
+        start = rs.uniform(0, 60000, n).astype(np.float32)
+        end = (start + rs.uniform(3000, 30000, n)).astype(np.float32)
+        day = pop_lib.pack_day(person, loc, start, end, pad_multiple=64)
+        sched = pop_lib.build_block_schedule(day.loc, day.num_real, 64)
+        sus = np.where(rs.random(400) < 0.6, rs.uniform(0.1, 1, 400), 0)
+        inf = np.where(rs.random(400) < 0.3, rs.uniform(0.1, 1, 400), 0)
+        safe = np.maximum(day.person, 0)
+        t = lambda a, dt: torch.as_tensor(np.array(a)).to(dt)
+        args = (t(day.person, torch.int32), t(day.loc, torch.int32),
+                t(day.start, torch.float32), t(day.end, torch.float32),
+                torch.full((len(day.person),), 0.3), t(sus[safe] * day.active, torch.float32),
+                t(inf[safe] * day.active, torch.float32),
+                *(t(a, torch.int32) for a in (sched.row_block, sched.col_block,
+                                              sched.row_start, sched.pair_active)),
+                None, None, torch.tensor([3, 4], dtype=torch.int64))
+        src = t(np.where(inf[safe] > 0, 1.0, 0.0) * day.active, torch.float32)
+        return _with_schedule(args, args[7:11], 64), src, 64
+    if kind == "alternating":
+        args, src = _case(1, 64, 3000, 200, 1000)
+        V = args[0].shape[0]
+        loc = torch.arange(V, dtype=torch.int32) % 2  # A, B, A, B, ...
+        args = (args[0], loc, *args[2:])
+        return _with_schedule(args, _full_schedule(V // 64), 64), src, 64
+    if kind == "zero_channels":
+        args, src = _case(3, 128, 30000, 2000, 10000)
+        lane = torch.arange(args[0].shape[0]) % 128
+        sus_v = torch.where(lane < 64, 0.0, args[5])  # half the rows of each block
+        inf_v = torch.where(lane % 3 == 0, 0.0, args[6])  # a third of the columns
+        args = (*args[:5], sus_v, inf_v, *args[7:])
+        return _with_schedule(args, args[7:11], 128), src, 128
+    # long_run: row block 0 has 150 entries (a CTA of 2 x 32 threads scans
+    # its run 64 entries at a time), cycling over all column blocks.
+    args, src = _case(0, 32, 300, 30, 90)
+    nb = args[0].shape[0] // 32
+    rows = torch.cat([torch.zeros(150, dtype=torch.int32),
+                      torch.arange(1, nb, dtype=torch.int32)])
+    cols = torch.cat([torch.arange(150, dtype=torch.int32) % nb,
+                      torch.arange(1, nb, dtype=torch.int32)])
+    start = torch.cat([torch.tensor([1], dtype=torch.int32), torch.zeros(149, dtype=torch.int32),
+                       torch.ones(nb - 1, dtype=torch.int32)])
+    return _with_schedule(args, (rows, cols, start, torch.ones_like(rows)), 32), src, 32
+
+
+LAYOUTS = ["shuffled", "band", "alternating", "zero_channels", "long_run"]
+
+
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_kernels_bitwise_on_layouts_without_shortcuts(cuda, layout, kernel):
+    """Each kernel bitwise equal to its plain version on layouts where a
+    location is not one run per block, fills whole blocks, alternates, or
+    whose live tiles hold rows and columns that cannot contribute."""
+    args, src, b = _layout_case(layout)
+    backend = "pallas" if kernel.startswith("padded") else "pallas-compact"
+    traced = kernel.endswith("traced")
+    run = lambda a, s: (t_ops.interactions_auto_traced(*a, backend=backend, block_size=b,
+                                                       src_val=s) if traced else
+                        t_ops.interactions_auto_edges(*a, backend=backend, block_size=b))
+    cpu = run(args, src)
+    before = WRAPPERS[kernel].launches
+    gpu = run([a.to(cuda) for a in args], src.to(cuda))
+    torch.cuda.synchronize()
+    assert WRAPPERS[kernel].launches == before + 1
+    for a, g in zip(cpu, gpu):
+        assert a.dtype == g.dtype and torch.equal(a, g.cpu())
+    assert int(gpu[1].sum()) > 0
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_padded_equals_compacted_on_layouts_without_shortcuts(cuda, layout):
+    args, src, b = _layout_case(layout)
+    args = [a.to(cuda) for a in args]
+    src = src.to(cuda)
+    for run in (lambda be: t_ops.interactions_auto_edges(*args, backend=be, block_size=b),
+                lambda be: t_ops.interactions_auto_traced(*args, backend=be, block_size=b,
+                                                          src_val=src)):
+        for x, y in zip(run("pallas"), run("pallas-compact")):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b", [32, 256, 512, 1024])
+def test_kernels_bitwise_at_other_tile_widths(cuda, b):
+    """Tile widths other than the main path's 128: 32 (many small CTAs) and
+    256 to 1024, whose shared memory needs the opt-in above 48 KB (at 1024,
+    one CTA of 1024 threads and ~225 KB)."""
+    args, src = _case(b, b, 6 * b, 40, 3 * b)
+    for kernel in WRAPPERS:
+        backend = "pallas" if kernel.startswith("padded") else "pallas-compact"
+        traced = kernel.endswith("traced")
+        run = lambda a, s: (t_ops.interactions_auto_traced(*a, backend=backend, block_size=b,
+                                                           src_val=s) if traced else
+                            t_ops.interactions_auto_edges(*a, backend=backend, block_size=b))
+        cpu = run(args, src)
+        gpu = run([a.to(cuda) for a in args], src.to(cuda))
+        torch.cuda.synchronize()
+        for x, g in zip(cpu, gpu):
+            assert x.dtype == g.dtype and torch.equal(x, g.cpu())
+        assert int(gpu[1].sum()) > 0
+
+
 # Flash attention: the kernel and its plain version run the same float32
 # arithmetic in another order (float32 |d| <= 1e-5 + 1e-5|x|); a bfloat16
 # output may round to the neighbouring bfloat16 (|d| <= 2e-2 + 1e-2|x|).

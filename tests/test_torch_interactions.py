@@ -24,6 +24,7 @@ from repro.kernels.interactions import ops as j_ops
 from repro_torch.kernels.interactions import kernel as t_kernel
 from repro_torch.kernels.interactions import ops as t_ops
 from repro_torch.kernels.interactions import ref as t_ref
+from repro_torch.core import rng as t_rng
 
 from test_interactions import _EXTREME_SEEDS, _extreme_case, make_case
 
@@ -250,3 +251,232 @@ def test_plain_version_chunking_is_bitwise_neutral(monkeypatch):
     for out, f in zip(whole, calls):
         for a, b in zip(out, f()):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' two identities, pinned on the CPU. The kernels
+# (csrc/interactions.cu) hoist the contact hash into per-day, per-visit and
+# per-pair parts and compare (h >> 8) with a per-row threshold instead of the
+# float uniform with p; and they add only the terms of contributing contact
+# pairs. Both must leave every output bitwise unchanged.
+# ---------------------------------------------------------------------------
+
+_MASK = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def _inner(w, i):
+    """Word i's inner hash of rng.hash_u32's fold, in the int64 carrier."""
+    return t_rng.fmix32((t_rng._u32(w) + _GOLDEN * (i + 1)) & _MASK)
+
+
+def _hoisted_hash(seed, day, pid_i, pid_j, loc):
+    """The kernels' contact hash: the day's prefix, each visit's words A and
+    B, the row's loc word L, and per pair two finalizers."""
+    prefix = t_rng.fmix32(t_rng._u32(seed) ^ _GOLDEN)
+    prefix = t_rng.fmix32(prefix ^ _inner(t_rng.CONTACT, 0))
+    prefix = t_rng.fmix32(prefix ^ _inner(day, 1))
+    A = lambda pid: t_rng.fmix32(prefix ^ _inner(pid, 2))
+    Bw = lambda pid: _inner(pid, 3)
+    lo = pid_i < pid_j
+    h = torch.where(lo, A(pid_i) ^ Bw(pid_j), A(pid_j) ^ Bw(pid_i))
+    return t_rng.fmix32(t_rng.fmix32(h) ^ _inner(loc, 4))
+
+
+def _uniform24(k):
+    """ref.py's uniform of a hash whose top 24 bits are k, in float32."""
+    return (np.asarray(k).astype(np.float32) * np.float32(2.0**-24)
+            + np.float32(2.0**-25)).astype(np.float32)
+
+
+def _threshold(p):
+    """Python mirror of the kernels' contact_threshold: a guess from p, then
+    the two loops that settle on the count of k with uniform24(k) < p."""
+    p = np.float32(p)
+    if not p > 0:
+        return 0
+    e = float(p) * 16777216.0 - 0.5
+    k = 0 if e <= 0 else 1 << 24 if e >= 16777216.0 else int(e)
+    while k > 0 and not _uniform24(k - 1) < p:
+        k -= 1
+    while k < 1 << 24 and _uniform24(k) < p:
+        k += 1
+    return k
+
+
+_U24 = None
+
+
+def _grid_count(p):
+    """The count of k in [0, 2^24) with uniform24(k) < p, over the whole grid."""
+    global _U24
+    if _U24 is None:
+        _U24 = _uniform24(np.arange(1 << 24, dtype=np.int64))
+    if np.isnan(p):  # nothing compares < NaN (searchsorted sorts NaN last)
+        return 0
+    return int(np.searchsorted(_U24, np.float32(p), side="left"))
+
+
+_U32_EDGES = np.array([0, 1, 2, 0x7FFFFFFF, 0x80000000, 0x9E3779B9, _MASK - 1, _MASK],
+                      np.int64)
+
+
+@pytest.mark.parametrize("case", ["random", "edges", "equal_pids", "large_pids"])
+def test_hoisted_hash_equals_rng_uniform(case):
+    """The hoisted hash gives ref.contact_uniform's draw bitwise, in either
+    pid order, on random and extreme u32 seeds, days, pids and locs."""
+    rs = np.random.default_rng(["random", "edges", "equal_pids", "large_pids"].index(case))
+    n = 4096
+    pid_max = np.iinfo(np.int32).max
+    if case == "edges":
+        seed = rs.choice(_U32_EDGES, n)
+        day = rs.choice(_U32_EDGES, n)
+        pid_i = rs.choice(np.array([0, 1, 2, pid_max - 1, pid_max]), n)
+        pid_j = rs.choice(np.array([0, 1, 2, pid_max - 1, pid_max]), n)
+        loc = rs.choice(np.array([0, 1, pid_max]), n)
+    else:
+        seed = rs.integers(0, 1 << 32, n)
+        day = rs.integers(0, 1 << 32, n)
+        hi = pid_max if case == "large_pids" else 100_000
+        pid_i = rs.integers(0, hi, n, endpoint=True)
+        pid_j = pid_i.copy() if case == "equal_pids" else rs.integers(0, hi, n, endpoint=True)
+        loc = rs.integers(0, hi, n, endpoint=True)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int64))
+    want = t_ref.contact_uniform(t(seed), t(day), t(pid_i), t(pid_j), t(loc))
+    for a, b in ((pid_i, pid_j), (pid_j, pid_i)):
+        h = _hoisted_hash(t(seed), t(day), t(a), t(b), t(loc))
+        got = (h >> 8).to(torch.float32) * (2.0**-24) + (2.0**-25)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["grid", "extreme", "random"])
+def test_contact_threshold_matches_the_float_compare(which):
+    """(h >> 8) < threshold(p) exactly when the float32 uniform is < p: the
+    threshold's guess-and-settle equals the count over the whole 2^24 grid,
+    and the compare agrees on every k near it and on random hashes."""
+    rs = np.random.default_rng(11)
+    if which == "grid":  # p on and next to the uniform's own values
+        k = rs.integers(0, 1 << 24, 64)
+        u = _uniform24(k)
+        ps = np.concatenate([u, np.nextafter(u, np.float32(0)), np.nextafter(u, np.float32(2))])
+    elif which == "extreme":
+        ps = np.array([0.0, -0.0, -1.0, 1e-45, 2.0**-26, 2.0**-25, 2.0**-24, 0.5, 1.0 - 2.0**-24,
+                       1.0, 1.0 + 2.0**-23, 2.0, np.inf, -np.inf, np.nan], np.float32)
+    else:
+        ps = rs.random(64).astype(np.float32)
+    for p in ps:
+        thr = _threshold(p)
+        assert thr == _grid_count(p), p
+        for k in (thr - 2, thr - 1, thr, thr + 1):
+            if 0 <= k < 1 << 24:
+                assert (k < thr) == bool(_uniform24(k) < np.float32(p)), (p, k)
+        h = rs.integers(0, 1 << 32, 256)
+        assert ((h >> 8) < thr).tolist() == (_uniform24(h >> 8) < np.float32(p)).tolist()
+
+
+def _skip_fold(args, src, b):
+    """The kernels' order with the left-out terms: per live tile in schedule
+    order, each row's part from 0.0f adds, in ascending column order, only the
+    terms of contributing contacts (same loc, both pids >= 0 and different,
+    overlap > 0, row sus != 0, column inf != 0, u < p); acc = acc + part."""
+    pid, loc, start, end, p_loc, sus, inf = args[:7]
+    rc = t_ops.compact_schedule(args[7], args[8], *args[10:13])
+    n = int(rc[3][0])
+    V = pid.shape[0]
+    acc = torch.zeros(V, dtype=torch.float32)
+    cnt = torch.zeros(V, dtype=torch.int32)
+    trc = torch.zeros(V, dtype=torch.int32)
+    seed, day = args[13][0], args[13][1]
+    for rb, cb in zip(rc[0][:n].tolist(), rc[1][:n].tolist()):
+        r = slice(rb * b, (rb + 1) * b)
+        c = slice(cb * b, (cb + 1) * b)
+        pr, pc = pid[r][:, None], pid[c][None, :]
+        ov = (torch.minimum(end[r][:, None], end[c][None, :])
+              - torch.maximum(start[r][:, None], start[c][None, :]))
+        u = t_ref.contact_uniform(seed, day, pr, pc, loc[r][:, None])
+        counts = ((loc[r][:, None] == loc[c][None, :]) & (pr >= 0) & (pc >= 0) & (pr != pc)
+                  & (ov > 0) & (sus[r][:, None] != 0) & (inf[c][None, :] != 0)
+                  & (u < p_loc[r][:, None]))
+        part = torch.zeros(b, dtype=torch.float32)
+        for j in range(b):
+            term = (ov[:, j] * sus[r]) * inf[c][j]
+            part = torch.where(counts[:, j], part + term, part)
+        acc[r] = acc[r] + part
+        pair = counts & (sus[r][:, None] > 0) & (inf[c][None, :] > 0)
+        cnt[r] += pair.sum(1, dtype=torch.int32)
+        trc[r] += (pair & (src[c][None, :] > 0)).sum(1, dtype=torch.int32)
+    return acc, cnt, trc
+
+
+def _shuffled(args, src, seed):
+    """The visits permuted inside each block: a location's visits are no
+    longer contiguous; the schedule and the block flags are unchanged."""
+    V = args[0].shape[0]
+    perm = np.random.default_rng(seed).permuted(np.arange(V).reshape(-1, B), axis=1).reshape(-1)
+    return (*(a[perm] for a in args[:7]), *args[7:]), src[perm]
+
+
+def _crafted(kind):
+    """Small days that put each left-out kind of pair into live tiles:
+    rows with sus = 0 and columns with inf = 0 meeting at one location,
+    pairs whose windows only touch (overlap 0), and pid -1 slots."""
+    rs = np.random.default_rng({"zero_channels": 21, "zero_overlap": 22, "padding": 23}[kind])
+    P, Vn = 40, 3 * B - 5
+    person = rs.integers(0, P, Vn)
+    loc = rs.integers(0, 3, Vn)
+    if kind == "zero_overlap":  # back-to-back 1-hour slots: most pairs touch
+        start = (rs.integers(0, 8, Vn) * 3600.0).astype(np.float32)
+        end = (start + 3600.0).astype(np.float32)
+    else:
+        start = rs.uniform(0, 20000, Vn).astype(np.float32)
+        end = (start + rs.uniform(3000, 20000, Vn)).astype(np.float32)
+    day_v = pop_lib.pack_day(person, loc, start, end, pad_multiple=B)
+    sus_pp = rs.uniform(0.1, 1.0, P).astype(np.float32)
+    inf_pp = rs.uniform(0.1, 1.0, P).astype(np.float32)
+    if kind == "zero_channels":
+        sus_pp[: P // 2] = 0.0
+        inf_pp[P // 4: 3 * P // 4] = 0.0
+    p_loc = np.full(3, 0.7, np.float32)
+    args, src = _inputs(day_v, day_v.num_real, p_loc, sus_pp, inf_pp, 5, 9,
+                        np.random.default_rng(1))
+    if kind == "padding":  # pid -1 slots inside the real prefix
+        args = list(args)
+        holes = rs.choice(day_v.num_real, 40, replace=False)
+        args[0] = args[0].copy()
+        args[0][holes] = -1
+        for i in (5, 6):
+            args[i] = args[i].copy()
+            args[i][holes] = 0.0
+        args = tuple(args)
+    return args, src
+
+
+_SKIP_CASES = ([("random", s, p) for s in (0, 1, 2) for p in (False, True)]
+               + [("extreme", k, p) for k in EXTREMES for p in (False, True)]
+               + [("shuffled", s, True) for s in (0, 1)]
+               + [("crafted", k, False) for k in ("zero_channels", "zero_overlap", "padding")])
+
+
+@pytest.mark.parametrize("case", _SKIP_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_contributing_pairs_alone_give_the_plain_sums(case):
+    """Summing only the contributing contacts, in ascending column order, gives
+    the plain versions' acc, cnt and trc bitwise, on both schedules."""
+    kind, which, packed = case
+    if kind == "crafted":
+        args, src = _crafted(which)
+    else:
+        make = _extreme if kind == "extreme" else _random
+        args, src = make(which, packed, np.random.default_rng(40 + len(str(which))))
+        if kind == "shuffled":
+            args, src = _shuffled(args, src, which)
+    t = _torch(args)
+    s = torch.as_tensor(src)
+    acc, cnt, trc = _skip_fold(t, s, B)
+    rc = t_ops.compact_schedule(t[7], t[8], *t[10:13])
+    plain_c = t_kernel.interactions_compact_plain(*t[:7], *rc, *t[11:], block_size=B, src_val=s)
+    plain_p = t_kernel.interactions_padded_plain(*t, block_size=B, src_val=s)
+    for got, want in ((acc, plain_c[0]), (cnt, plain_c[1]), (trc, plain_c[2]),
+                      (acc, plain_p[0]), (cnt, plain_p[1]), (trc, plain_p[2])):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    if kind == "crafted" or (kind == "extreme" and which == "all_infectious"):
+        assert int(cnt.sum()) > 0

@@ -25,7 +25,13 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      compacted; the pair counts; times by CUDA events around back-to-back
      calls and device alone (the stream asleep first), the wrapper's host
      time per call, and the bound under this model and PR 11-14's;
-  4. the main path — EngineCore.single on md-mini, covid, seed 0, 200 days
+  3b. the scenario axis — the four kernels at B = 4 (one scenario in each
+     state, the batch sharing the week's layout: "shuffled" permutes only the
+     per-scenario arrays) in one launch each, bitwise equal to the plain
+     version and, per scenario, to its own B = 1 launch; at B = 8 timed on
+     both timers beside eight B = 1 launches, the plain version and the
+     bound (these B = 8 numbers fill the kernels' JSON record);
+  4. one scenario — EngineCore.single on md-mini, covid, seed 0, 200 days
      under torch.use_deterministic_algorithms(True), the day loop under
      torch.cuda.set_sync_debug_mode("error"): one kernel launch per day,
      edges == contacts every day, a monotone cumulative count above the
@@ -37,6 +43,14 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      the test budget kept, tests/isolation/tracing all used, the backends'
      histories and final states bitwise equal, a bitwise-identical second
      run of each; ms/day and traversed edges/s; a profiled TTI week;
+  4d. the main path: scenario batches — the md-mini B = 8 ensemble (presets
+     none, lockdown, school-closure, vax-seniors x 2 replicates) for 200 days
+     on each backend, the nine observables updating inside the loop under
+     sync-debug "error", one launch a day for the batch, each column bitwise
+     equal to its B = 1 card run, the backends bitwise equal; profiled weeks
+     at B = 8 and 64; the TTI ensemble (tti x 4 replicates) on both
+     backends, bitwise; repro_torch.api.run at B = 1, 8 and 64 (ms per
+     scenario-day), twice each; launch/sweep.py once;
   5. reference — twin-2k on the card against the plain path on the CPU, 30
      days untraced and 25 days under test-trace-isolate: the same
      trajectory up to float ulps in exp/log;
@@ -240,7 +254,8 @@ def visit_inputs(core, person_sus, person_inf, dow, ops):
     inf_v = person_inf[pid.clamp(min=0)] * active
     eff = torch.where(active, pid, -1)
     nb = pid.shape[0] // BLOCK
-    meta = torch.stack([core.params.seed, torch.full_like(core.params.seed, dow)])
+    seed = core.params.seed[0]
+    meta = torch.stack([seed, torch.full_like(seed, dow)])
     return (eff, w["loc"], w["start"], w["end"], w["p"], sus_v, inf_v,
             w["row"], w["col"], w["rs"], w["pa"],
             ops.col_has_infectious(inf_v, eff, nb, BLOCK),
@@ -348,9 +363,11 @@ def profile_days(core, state, card: str, label: str) -> None:
     k_n, k_ms = sum(v[0] for v in kern), sum(v[1] for v in kern)
     sorts = [v for k, v in by_name.items() if "sort" in k.lower()]
     s_n, s_ms = sum(v[0] for v in sorts), sum(v[1] for v in sorts)
-    day0 = int(state.day)
-    log(f"[profile:{label}] days {day0}-{day0 + 6} (profiler on): "
-        f"wall {wall_ms / 7:.3f} ms/day, device busy {busy / 7:.3f} ms/day over a "
+    day0 = int(state.day[0])
+    B = state.day.shape[0]
+    log(f"[profile:{label}] B={B}, days {day0}-{day0 + 6} (profiler on): "
+        f"wall {wall_ms / 7:.3f} ms/day ({wall_ms / 7 / B:.4f} ms per scenario-day), "
+        f"device busy {busy / 7:.3f} ms/day over a "
         f"kernel span of {span / 7:.3f} ms/day, idle share "
         f"{1.0 - busy / span:.4f}; {len(dev) / 7:.1f} device ops/day; "
         f"interactions_kernel {k_n} launches, {k_ms / 7:.4f} ms/day "
@@ -361,26 +378,37 @@ def profile_days(core, state, card: str, label: str) -> None:
         log(f"[profile:{label}]   {ms / 7:9.4f} ms/day  {n / 7:6.1f}/day  {name[:110]}")
 
 
-def run_path(core, wrappers, days: int):
-    """Drive ``core`` for ``days`` days from its initial state with every
-    launch count set to 0 just before and read just after, the day loop
-    under sync-debug "error". Returns (final, hist, launches, seconds)."""
+def run_path(core, wrappers, days: int, column=0, observables=()):
+    """Drive ``core`` (a batch of B scenarios) for ``days`` days from its
+    initial state with every launch count set to 0 just before and read
+    just after, the day loop (with the named ``observables`` updating inside
+    it) under sync-debug "error". Returns (final, hist, launches, seconds):
+    ``hist`` maps each stat to scenario ``column``'s (days,) series, or with
+    ``column=None`` to the (days, B) array."""
+    from repro_torch.api import observables as obs_lib
     from repro_torch.engine import hist_to_numpy
 
-    state = core.init_state1()
+    state = core.init_state()
+    obs = obs_lib.make_observables(observables)
+    carries = obs_lib.init_carries(obs, obs_lib.ObsContext(
+        num_people=core.pop.num_people, num_scenarios=core.num_real, device=str(core.device)))
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        final, hist = core.run_days(days, state=state)
+        final, _, hist, _ = core.run_days(days, state=state, observables=obs,
+                                          carries=carries)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    return final, hist_to_numpy(hist), launches, dt
+    hist = hist_to_numpy(hist)
+    if column is not None:
+        hist = {k: v[:, column] for k, v in hist.items()}
+    return final, hist, launches, dt
 
 
 def same_run(a, b, what: str) -> None:
@@ -627,7 +655,7 @@ def interaction_states(core, covid, ops):
     early[rs.choice(P, 10, replace=False)] = covid.state_index("Ipre")
     mid = rs.choice(covid.num_states, size=P,
                     p=[0.45, 0.1, 0.1, 0.15, 0.1, 0.1]).astype(np.int32)
-    beta_sus, beta_inf = core.params.beta_sus, core.params.beta_inf
+    beta_sus, beta_inf = core.params.beta_sus[0], core.params.beta_inf[0]
     channels = {}
     for label, health in (("early", early), ("mid", mid)):
         h = torch.as_tensor(health, device=dev).long()
@@ -715,6 +743,253 @@ def interaction_phase(core, covid, kernel, ops, wrappers, card: str) -> dict:
         log(f"[kernel:{label}] padded bitwise equal to compacted, untraced and traced; "
             f"sources={int(src.sum())}")
     return records
+
+
+# Scenario batches (this slice's main path): the ensemble's presets, and the
+# study shapes timed through api.run: (B, interventions, tau scales,
+# replicates), each run twice in the order 1, 8, 64, 64, 8, 1.
+ENSEMBLE_PRESETS = ("none", "lockdown", "school-closure", "vax-seniors")
+STUDIES = ((1, ("none",), (1.0,), 1), (8, ENSEMBLE_PRESETS, (1.0,), 2),
+           (64, ENSEMBLE_PRESETS, (1.0, 0.75), 8))
+TTI_REPLICATES = 4
+# Per-scenario arguments of the wrappers (a leading B in a batched call).
+PER_SCENARIO = (0, 5, 6, 11, 12, 13)
+
+
+def stack_scenarios(scen):
+    """[(args, src), ...] of scenarios on one layout -> (batched args,
+    batched src): per-scenario arguments stacked, the rest the first's."""
+    args = tuple(torch.stack([a[j] for a, _ in scen]) if j in PER_SCENARIO else scen[0][0][j]
+                 for j in range(len(scen[0][0])))
+    return args, torch.stack([src for _, src in scen])
+
+
+def batch_states(core, covid, ops):
+    """Phase 3b's scenarios on md-mini's day-0 layout: early, mid, all and
+    "shuffled", each with its own meta (seed, day). The batch shares the
+    week's loc, start, end, p and schedule, so "shuffled" here permutes only
+    the mid state's per-scenario arrays (pid, sus, inf, sources) inside each
+    block, the permutation phase 3 applies to every array."""
+    states = interaction_states(core, covid, ops)
+    base = states["mid"][0]
+    scen = []
+    for i, label in enumerate(("early", "mid", "all", "shuffled")):
+        args, src = states[label]
+        args = list(args)
+        if label == "shuffled":
+            args[1:5], args[7:11] = base[1:5], base[7:11]
+        args[13] = torch.tensor([1 + 7919 * i, i], dtype=torch.int64, device=base[0].device)
+        scen.append((tuple(args), src))
+    return scen
+
+
+def batched_kernel_phase(core, covid, kernel, ops, wrappers, card) -> dict:
+    """The four interaction kernels with the scenario axis: at B = 4 (one
+    scenario per state) each is bitwise equal to its plain version and, per
+    scenario, to its own B = 1 launch, in one launch; at B = 8 (the four
+    states twice, other seeds) it is timed on both timers beside the plain
+    version, eight B = 1 launches and the bound. Returns kernel -> the B = 8
+    record (the JSON line's numbers: the main path's batch width)."""
+    from repro_torch.kernels.interactions.ref import contact_uniform
+
+    scen4 = batch_states(core, covid, ops)
+    scen8 = scen4 + [((*a[:13], a[13] + torch.tensor([100, 0], device=a[13].device)), s)
+                     for a, s in scen4]
+    plain = {"pallas-compact": kernel.interactions_compact_plain,
+             "pallas": kernel.interactions_padded_plain}
+
+    def kernel_args(args, backend):
+        if backend == "pallas":
+            return args
+        return args[:7] + ops.compact_schedule(args[7], args[8], *args[10:13]) + args[11:]
+
+    counts = []
+    for args, _ in scen8:
+        rc = ops.compact_schedule(args[7], args[8], *args[10:13])
+        n_live = int(rc[3][0])
+        counts.append(pair_counts(args, rc[0][:n_live], rc[1][:n_live], contact_uniform))
+    n8 = {k: sum(c[k] for c in counts) for k in counts[0]}
+    log(f"[batched] B=8 scenarios on one layout: live tiles "
+        f"{[int(ops.compact_schedule(a[7], a[8], *a[10:13])[3][0]) for a, _ in scen8]}, "
+        f"candidates={n8['candidates']} contributing={n8['contributing']} "
+        f"contacts={n8['contacts']}")
+    records = {}
+    for kname, (wname, backend, traced, _) in KERNELS.items():
+        for width, scen in ((4, scen4), (8, scen8)):
+            args, src = stack_scenarios(scen)
+            ka = kernel_args(args, backend)
+            kw = dict(block_size=BLOCK, src_val=src) if traced else dict(block_size=BLOCK)
+            before = wrappers[kname].launches
+            out_k = wrappers[kname](*ka, **kw)
+            if wrappers[kname].launches != before + 1:
+                raise AssertionError(f"[batched] {kname}: a batch of {width} took "
+                                     f"{wrappers[kname].launches - before} launches")
+            out_p = plain[backend](*ka, **kw)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(out_k, out_p)):
+                if a.shape[0] != width or not torch.equal(a, b):
+                    raise AssertionError(f"[batched] B={width} {kname} output {i} != plain")
+            alone = []
+            for j, (a1, s1) in enumerate(scen):
+                kw1 = dict(block_size=BLOCK, src_val=s1) if traced else dict(block_size=BLOCK)
+                ka1 = kernel_args(a1, backend)
+                out1 = wrappers[kname](*ka1, **kw1)
+                alone.append((ka1, kw1))
+                for i, (a, b) in enumerate(zip(out_k, out1)):
+                    if not torch.equal(a[j], b):
+                        raise AssertionError(f"[batched] B={width} {kname} scenario {j} "
+                                             f"output {i} != its own launch")
+            if width == 4:
+                log(f"[batched] B=4 {kname}: one launch, bitwise equal to plain and, per "
+                    f"scenario (early, mid, all, shuffled), to its own launch; contacts "
+                    f"{out_k[1].sum(dim=1).tolist()}")
+                continue
+            run_k = lambda: wrappers[kname](*ka, **kw)
+            run_p = lambda: plain[backend](*ka, **kw)
+            run_1 = lambda: [wrappers[kname](*a1, **k1) for a1, k1 in alone]
+            ms = cuda_ms(run_k, 20)
+            device_ms, host_ms = device_host_ms(run_k, 20)
+            seq_device_ms, seq_host_ms = device_host_ms(run_1, 5)
+            plain_ms = cuda_ms(run_p, 1)
+            err = float((out_k[0] - out_p[0]).abs().max())
+            inputs = list(ka) + ([src] if traced else [])
+            bound_ms, bound_by, n_int, n_float = bound(inputs, out_k, n8, traced)
+            records[kname] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+            log(f"[batched] B=8 {kname}: one launch bitwise equal to plain and to eight B=1 "
+                f"launches; kernel_ms={ms:.4f} device_ms={device_ms:.4f} host_ms={host_ms:.4f} "
+                f"| eight B=1 launches device_ms={seq_device_ms:.4f} host_ms={seq_host_ms:.4f} "
+                f"| plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} ({bound_by}; "
+                f"{100.0 * bound_ms / device_ms:.2f}% device alone; int_ops={n_int} "
+                f"float_ops={n_float}) max_abs_err={err}; {card}")
+    return records
+
+
+def ensemble_phase(pop, covid, epi, wrappers, card) -> dict:
+    """This slice's main path: md-mini scenario batches on the card.
+
+    The B = 8 ensemble (ENSEMBLE_PRESETS x 2 replicates) for DAYS days on
+    each backend under sync-debug "error": DAYS launches for the batch, each
+    column bitwise equal to its B = 1 card run, the backends bitwise equal;
+    a profiled week at B = 1 is phase 4b's, here at B = 8 and 64; the TTI
+    ensemble (tti x TTI_REPLICATES) on both backends, bitwise; api.run at
+    B = 1, 8 and 64 (ms per scenario-day, one launch a day for the batch,
+    B = 8 equal to the ensemble); and the sweep CLI once. Returns the main
+    path's launch counts by kernel."""
+    from repro_torch import api
+    from repro_torch.configs import INTERVENTION_PRESETS
+    from repro_torch.configs.sweep import ScenarioBatch
+    from repro_torch.engine import EngineCore
+    from repro_torch.launch import sweep
+
+    main_launches = {}
+    batch = ScenarioBatch.from_product(
+        interventions={n: INTERVENTION_PRESETS[n] for n in ENSEMBLE_PRESETS},
+        tau=epi.tau, seeds=[0, 1])
+    B = len(batch)
+    runs = {}
+    for backend, kname in (("pallas-compact", "interactions_compact"),
+                           ("pallas", "interactions_padded")):
+        core = EngineCore(pop, batch, block_size=BLOCK, device="cuda", backend=backend)
+        # every observable updates inside the loop (none may sync)
+        final, hist, launches, dt = run_path(core, wrappers, DAYS, column=None,
+                                             observables=tuple(api.OBSERVABLES))
+        expect_launches(launches, kname, DAYS, f"ensemble B={B}, {backend}")
+        main_launches[kname] = launches[kname]
+        if not np.array_equal(hist["edges"], hist["contacts"]):
+            raise AssertionError(f"ensemble {backend}: edges != contacts")
+        runs[backend] = (final, hist, dt, core)
+        log(f"[ensemble] {DATASET} B={B} ({', '.join(batch.names)}), {backend}, {DAYS} days: "
+            f"launches={launches[kname]} for the batch; cumulative "
+            f"{hist['cumulative'][-1].tolist()}; {1e3 * dt / DAYS:.3f} ms/day, "
+            f"{1e3 * dt / (DAYS * B):.4f} ms per scenario-day; {card}")
+    (fa, ha, dt_a, core), (fb, hb, _, _) = runs["pallas-compact"], runs["pallas"]
+    same_run((fa, ha), (fb, hb), f"ensemble B={B}, pallas against pallas-compact")
+    cum = ha["cumulative"]
+    if (np.diff(cum, axis=0) < 0).any() or not (cum[-1] > 70).all():
+        raise AssertionError(f"ensemble cumulative not monotone or not above the seeds: {cum[-1]}")
+    if np.array_equal(ha["cumulative"][:, 0], ha["cumulative"][:, 2]):
+        raise AssertionError("ensemble: lockdown never parted from the baseline")
+    one_dt = 0.0
+    for i, scen in enumerate(batch):
+        c1 = EngineCore(pop, [scen], block_size=BLOCK, device="cuda")
+        f1, h1, _, dt1 = run_path(c1, wrappers, DAYS)
+        one_dt += dt1
+        for k in h1:
+            if not np.array_equal(h1[k], ha[k][:, i]):
+                raise AssertionError(f"ensemble column {i} ({scen.name}) '{k}' != its B=1 run")
+        for f in ("health", "dwell", "cumulative", "vaccinated", "iv_active"):
+            if not torch.equal(getattr(f1, f)[0], getattr(fa, f)[i]):
+                raise AssertionError(f"ensemble column {i} ({scen.name}): final '{f}' differs")
+    log(f"[ensemble] each of the {B} columns bitwise equal to its B=1 card run (histories "
+        f"and final states); both backends bitwise equal; B={B} in one loop "
+        f"{1e3 * dt_a / (DAYS * B):.4f} ms per scenario-day against {B} B=1 runs "
+        f"{1e3 * one_dt / (DAYS * B):.4f}; {card}")
+    profile_days(core, core.run_days(PROFILE_FROM)[0], card, f"ensemble-B{B}")
+
+    tti = ScenarioBatch.from_product(interventions={"tti": INTERVENTION_PRESETS["tti"]},
+                                     tau=epi.tau, seeds=list(range(TTI_REPLICATES)))
+    tti_runs = {}
+    for backend, kname in (("pallas-compact", "interactions_compact_traced"),
+                           ("pallas", "interactions_padded_traced")):
+        c = EngineCore(pop, tti, block_size=BLOCK, device="cuda", backend=backend)
+        final, hist, launches, dt = run_path(c, wrappers, DAYS, column=None)
+        expect_launches(launches, kname, DAYS, f"TTI ensemble, {backend}")
+        main_launches[kname] = launches[kname]
+        if not np.array_equal(hist["edges"], hist["contacts"]) or \
+                hist["tests_used"].max() > TTI_TESTS_PER_DAY:
+            raise AssertionError(f"TTI ensemble {backend}: edges != contacts or budget exceeded")
+        for k in ("tests_used", "isolated", "traced"):
+            if (hist[k].max(axis=0) <= 0).any():
+                raise AssertionError(f"TTI ensemble {backend}: '{k}' zero in a scenario")
+        tti_runs[backend] = (final, hist)
+        log(f"[ensemble] TTI B={len(tti)} ({', '.join(tti.names)}), {backend}: "
+            f"launches={launches[kname]}; cumulative {hist['cumulative'][-1].tolist()}, "
+            f"tests {hist['tests_used'].sum(axis=0).tolist()}; {1e3 * dt / DAYS:.3f} ms/day, "
+            f"{1e3 * dt / (DAYS * len(tti)):.4f} ms per scenario-day; {card}")
+    same_run(tti_runs["pallas"], tti_runs["pallas-compact"], "TTI ensemble across backends")
+    log("[ensemble] TTI ensemble bitwise equal across backends")
+
+    stamp("api.run studies")
+    for width, ivs, taus, reps in STUDIES + STUDIES[::-1]:
+        spec = api.ExperimentSpec(name=f"md-mini-B{width}", dataset=DATASET, days=DAYS,
+                                  interventions=ivs, tau_scales=taus, replicates=reps,
+                                  backend="pallas-compact")
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        r = api.run(spec, population=pop)
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        expect_launches(launches, "interactions_compact", DAYS, f"api.run B={width}")
+        if r.num_scenarios != width or r.history["cumulative"].shape != (DAYS, width) or \
+                not np.array_equal(r.history["edges"], r.history["contacts"]):
+            raise AssertionError(f"api.run B={width}: history shape or edges wrong")
+        if width == B:
+            for k in ha:
+                if not np.array_equal(r.history[k], ha[k]):
+                    raise AssertionError(f"api.run B={width} '{k}' != the ensemble's history")
+        band = r.observables["ensemble_mean_ci"]["new_infections"]
+        if not all(np.isfinite(np.asarray(band[x])).all() for x in ("mean", "lo", "hi")):
+            raise AssertionError(f"api.run B={width}: mean/CI band not finite")
+        prov = r.provenance
+        log(f"[study] api.run {DATASET} B={width} ({prov['engine']}, {prov['route']}), {DAYS} "
+            f"days: launches={launches['interactions_compact']} (one a day for the batch); "
+            f"run_wall_s={prov['run_wall_s']} -> {1e3 * prov['run_wall_s'] / DAYS:.3f} ms/day, "
+            f"{1e3 * prov['run_wall_s'] / (DAYS * width):.4f} ms per scenario-day; "
+            f"api.run wall {wall:.3f} s; mean attack rate "
+            f"{100.0 * float(np.mean(r.history['cumulative'][-1])) / pop.num_people:.2f}%; "
+            f"teps={prov['teps']:.4g}; {card}")
+    big = api.ExperimentSpec(dataset=DATASET, interventions=STUDIES[2][1],
+                             tau_scales=STUDIES[2][2], replicates=STUDIES[2][3]).build_batch()
+    c64 = EngineCore(pop, big, block_size=BLOCK, device="cuda")
+    profile_days(c64, c64.run_days(PROFILE_FROM)[0], card, f"ensemble-B{len(big)}")
+
+    stamp("sweep CLI")
+    sweep.main(["--dataset", DATASET, "--days", "30", "--interventions", "none,lockdown",
+                "--replicates", "2"])
+    return main_launches
 
 
 def interactions_only(src: str) -> int:
@@ -824,18 +1099,20 @@ def main() -> int:
     P = pop.num_people
     records = interaction_phase(core, covid, kernel, ops, wrappers, card)
 
+    # ---- phase 3b: the kernels with the scenario axis -----------------------
+    stamp("batched interaction kernels")
+    batched = batched_kernel_phase(core, covid, kernel, ops, wrappers, card)
+
     # ---- phase 4: the main path -------------------------------------------
     stamp("main path")
     torch.use_deterministic_algorithms(True)
-    main_launches = {}
     run1 = run_path(core, wrappers, DAYS)
     final1, hist1, launches, dt1 = run1
     expect_launches(launches, "interactions_compact", DAYS, "main path")
-    main_launches["interactions_compact"] = launches["interactions_compact"]
     if not np.array_equal(hist1["edges"], hist1["contacts"]):
         raise AssertionError("in-kernel edges != contacts on some day")
     cum = hist1["cumulative"]
-    seeds = core.scenario.seed_per_day * core.scenario.seed_days
+    seeds = core.batch[0].seed_per_day * core.batch[0].seed_days
     if np.any(np.diff(cum) < 0) or cum[-1] <= seeds:
         raise AssertionError(f"cumulative not monotone or not above {seeds}: {cum}")
     final2, hist2, _, dt2 = run_path(core, wrappers, DAYS)
@@ -852,14 +1129,13 @@ def main() -> int:
                                     device="cuda", backend="pallas")
     final_p, hist_p, launches, dt_p = run_path(padded_core, wrappers, DAYS)
     expect_launches(launches, "interactions_padded", DAYS, "main path, pallas")
-    main_launches["interactions_padded"] = launches["interactions_padded"]
     same_run((final1, hist1), (final_p, hist_p), "main path, pallas against pallas-compact")
     log(f"[main] backend pallas: launches={launches['interactions_padded']}, "
         f"{1e3 * dt_p / DAYS:.3f} ms/day, {edges / dt_p:.4g} traversed edges/s; "
         f"bitwise equal to pallas-compact; {card}")
 
     # ---- phase 4b: where a day's time goes --------------------------------
-    mid_state, _ = core.run_days(PROFILE_FROM)
+    mid_state = core.run_days(PROFILE_FROM)[0]
     profile_days(core, mid_state, card, "main")
 
     # ---- phase 4c: the TTI path -------------------------------------------
@@ -872,7 +1148,6 @@ def main() -> int:
         traced = "interactions_compact_traced" if backend == "pallas-compact" \
             else "interactions_padded_traced"
         expect_launches(launches, traced, DAYS, f"TTI path, {backend}")
-        main_launches[traced] = launches[traced]
         if not np.array_equal(hist["edges"], hist["contacts"]):
             raise AssertionError(f"TTI {backend}: edges != contacts on some day")
         if hist["tests_used"].max() > TTI_TESTS_PER_DAY:
@@ -894,8 +1169,12 @@ def main() -> int:
         "second run bitwise identical")
     tti_core = EngineCore.single(pop, covid, tm, seed=0, block_size=BLOCK, device="cuda",
                                  interventions=INTERVENTION_PRESETS["tti"])
-    tti_mid, _ = tti_core.run_days(PROFILE_FROM)
+    tti_mid = tti_core.run_days(PROFILE_FROM)[0]
     profile_days(tti_core, tti_mid, card, "tti")
+
+    # ---- phase 4d: scenario batches, this slice's main path -----------------
+    stamp("ensembles")
+    main_launches = ensemble_phase(pop, covid, epi, wrappers, card)
 
     # ---- phase 5: reference on a small input ------------------------------
     stamp("reference")
@@ -936,14 +1215,15 @@ def main() -> int:
     log(card)
     line = []
     for kname, (_, _, _, replaces) in KERNELS.items():
-        rec = records[kname]["mid"]
+        rec = batched[kname]  # at B = 8, the main path's batch width
         line.append({
             "name": kname,
             "route": "cuda",
             "source": os.path.relpath(kernel.SOURCE, ROOT),
             "replaces": replaces,
             "launches": main_launches[kname],
-            "max_abs_err": max(r["max_abs_err"] for r in records[kname].values()),
+            "max_abs_err": max(rec["max_abs_err"],
+                               *(r["max_abs_err"] for r in records[kname].values())),
             "ms": rec["ms"],
             "device_ms": rec["device_ms"],
             "plain_ms": rec["plain_ms"],

@@ -15,7 +15,7 @@ from repro_torch.configs.presets import (  # noqa: F401
     DISEASES,
     INTERVENTION_PRESETS,
 )
-from repro_torch.configs.sweep import Scenario  # noqa: F401
+from repro_torch.configs.sweep import Scenario, ScenarioBatch  # noqa: F401
 
 
 def get_config(name: str) -> ModelConfig:

@@ -5,8 +5,8 @@ are stochastic both in the next state (categorical) and in dwell time
 (exponential around a per-state mean).
 
 The FSA is represented with small dense tables, so the per-day update is a
-handful of vectorized gathers over the (P,) person-state tensors — no
-per-agent control flow. The model description is host-side numpy; the
+handful of vectorized gathers over the (B, P) person-state tensors of a
+scenario batch — no per-agent control flow. The model description is host-side numpy; the
 update runs on tensors on any device.
 """
 
@@ -177,37 +177,42 @@ def initial_health(model: DiseaseModel, num_people: int, *, device):
 
 
 def update_health_tables(
-    cum_trans: torch.Tensor,  # (S, S) cumulative transition rows
-    dwell_mean: torch.Tensor,  # (S,)
-    susceptibility: torch.Tensor,  # (S,)
-    entry_state: torch.Tensor,  # () int
-    state: torch.Tensor,  # (P,) int32
-    dwell_left: torch.Tensor,  # (P,) f32 days remaining in current state
-    newly_infected: torch.Tensor,  # (P,) bool
-    seed,
-    day,
+    cum_trans: torch.Tensor,  # (B, S, S) cumulative transition rows
+    dwell_mean: torch.Tensor,  # (B, S)
+    susceptibility: torch.Tensor,  # (B, S)
+    entry_state: torch.Tensor,  # (B,) int
+    state: torch.Tensor,  # (B, P) int32
+    dwell_left: torch.Tensor,  # (B, P) f32 days remaining in current state
+    newly_infected: torch.Tensor,  # (B, P) bool
+    seed,  # (B, 1)
+    day,  # (B, 1)
     pid: torch.Tensor,  # (P,) ids keying the draws (global person ids)
 ):
-    """End-of-day health update (Algorithm 2 line 30), table-driven.
+    """End-of-day health update (Algorithm 2 line 30), table-driven, for a
+    batch of scenarios: every table lookup gathers from the scenario's own
+    row.
 
     Infections landed this day take precedence (a susceptible cannot also
     make a timed transition), then timed transitions fire for anyone whose
     dwell expired. Same operation order as the reference, so everything but
     the ``log`` in the dwell draw is bitwise equal to it.
     """
+    look = lambda table, idx: table.gather(1, idx.long())
+    S = cum_trans.shape[-1]
+    rows = cum_trans.gather(1, state.long()[..., None].expand(-1, -1, S))
     # Timed transition draws (only applied where dwell expires).
-    next_state = rng.categorical(cum_trans[state], seed, rng.TRANSITION, day, pid)
+    next_state = rng.categorical(rows, seed, rng.TRANSITION, day, pid)
     dwell_after = dwell_left - 1.0
     timed = dwell_after <= 0.0
 
     state_t = torch.where(timed, next_state, state)
     # Infection overrides: susceptible -> entry state.
-    can_infect = susceptibility[state] > 0.0
+    can_infect = look(susceptibility, state) > 0.0
     infected = newly_infected & can_infect
-    state_new = torch.where(infected, entry_state.to(torch.int32), state_t)
+    state_new = torch.where(infected, entry_state.to(torch.int32)[:, None], state_t)
 
     changed = infected | (timed & (state_new != state))
-    mean_new = dwell_mean[state_new]
+    mean_new = look(dwell_mean, state_new)
     new_dwell = rng.exponential(mean_new, seed, rng.DWELL, day, pid)
     # Keep at least one day in any transient state (paper's day granularity).
     new_dwell = torch.clamp(new_dwell, min=1.0)

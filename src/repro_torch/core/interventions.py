@@ -233,7 +233,9 @@ class PaSlotStatic:
 
 @dataclasses.dataclass
 class IvParams:
-    """Intervention numerics as tensors (slot axis K leads)."""
+    """Intervention numerics as tensors. The shapes below are one
+    scenario's (slot axis K leads); in the day step every leaf carries a
+    leading scenario axis B in front of them."""
 
     enabled: torch.Tensor  # (K,) bool — slot on/off
     day_start: torch.Tensor  # (K,) int32 (day_range)
@@ -349,54 +351,58 @@ def compile_iv_params(
 
 def apply_iv_params(
     slots: Sequence[IvSlotStatic],
-    p: IvParams,
-    active: torch.Tensor,  # (K,) bool — trigger states from end of previous day
-    vaccinated: torch.Tensor,  # (P,) bool persistent flag
+    p: IvParams,  # leaves (B, ...): one row per scenario
+    active: torch.Tensor,  # (B, K) bool — trigger states from end of previous day
+    vaccinated: torch.Tensor,  # (B, P) bool persistent flag
     num_people: int,
     num_locations: int,
 ):
-    """Fold active interventions into per-day effective masks/multipliers.
+    """Fold active interventions into per-day effective masks/multipliers,
+    for a batch of scenarios.
 
-    Returns (visit_ok (P,), loc_open (L,), sus_mult (P,), inf_mult (P,),
-    new_vaccinated (P,)), in the reference's operation order."""
+    Returns (visit_ok (B, P), loc_open (B, L), sus_mult (B, P), inf_mult
+    (B, P), new_vaccinated (B, P)), in the reference's operation order."""
     dev = vaccinated.device
-    visit_ok = torch.ones((num_people,), dtype=torch.bool, device=dev)
-    loc_open = torch.ones((num_locations,), dtype=torch.bool, device=dev)
-    sus_mult = torch.ones((num_people,), dtype=torch.float32, device=dev)
-    inf_mult = torch.ones((num_people,), dtype=torch.float32, device=dev)
+    B = vaccinated.shape[0]
+    visit_ok = torch.ones((B, num_people), dtype=torch.bool, device=dev)
+    loc_open = torch.ones((B, num_locations), dtype=torch.bool, device=dev)
+    sus_mult = torch.ones((B, num_people), dtype=torch.float32, device=dev)
+    inf_mult = torch.ones((B, num_people), dtype=torch.float32, device=dev)
     for k, s in enumerate(slots):
-        on = active[k]
+        on = active[:, k, None]
+        factor = p.factor[:, k, None]
         if s.action == "isolate":
-            visit_ok = visit_ok & ~(on & p.people[k])
+            visit_ok = visit_ok & ~(on & p.people[:, k])
         elif s.action == "close":
-            loc_open = loc_open & ~(on & p.locations[k])
+            loc_open = loc_open & ~(on & p.locations[:, k])
         elif s.action == "scale_sus":
-            sus_mult = sus_mult * torch.where(on & p.people[k], p.factor[k], 1.0)
+            sus_mult = sus_mult * torch.where(on & p.people[:, k], factor, 1.0)
         elif s.action == "scale_inf":
-            inf_mult = inf_mult * torch.where(on & p.people[k], p.factor[k], 1.0)
+            inf_mult = inf_mult * torch.where(on & p.people[:, k], factor, 1.0)
         elif s.action == "vaccinate":
-            vaccinated = vaccinated | (on & p.people[k])
+            vaccinated = vaccinated | (on & p.people[:, k])
     for k, s in enumerate(slots):
         if s.action == "vaccinate":
             sus_mult = sus_mult * torch.where(
-                vaccinated & p.people[k], p.factor[k], 1.0
+                vaccinated & p.people[:, k], p.factor[:, k, None], 1.0
             )
             break  # one vaccinated flag — first Vaccinate defines efficacy
     return visit_ok, loc_open, sus_mult, inf_mult, vaccinated
 
 
 def evaluate_iv_triggers(slots, p: IvParams, day, stats, active):
-    """End-of-day trigger evaluation (Algorithm 2, line 34). Disabled slots
-    (``p.enabled[k] == False``) never activate."""
+    """End-of-day trigger evaluation (Algorithm 2, line 34) for a batch:
+    ``day`` and each ``stats`` entry are (B,), ``active`` (B, K). Disabled
+    slots (``p.enabled[:, k] == False``) never activate."""
     if not slots:
         return active
     new = []
     for k, s in enumerate(slots):
         if s.trigger == "day_range":
-            t = (day >= p.day_start[k]) & (day < p.day_end[k])
+            t = (day >= p.day_start[:, k]) & (day < p.day_end[:, k])
         else:  # case_threshold (hysteresis; thresh_off == NEVER_OFF latches)
             x = stats[s.metric]
-            rising = x >= p.thresh_on[k]
-            t = torch.where(active[k], x >= p.thresh_off[k], rising)
-        new.append(t & p.enabled[k])
-    return torch.stack(new)
+            rising = x >= p.thresh_on[:, k]
+            t = torch.where(active[:, k], x >= p.thresh_off[:, k], rising)
+        new.append(t & p.enabled[:, k])
+    return torch.stack(new, dim=-1)

@@ -5,6 +5,12 @@
   outbreak-seeding knobs) as tensors on the run's device.
 * ``SimState`` — what one day hands to the next.
 
+:func:`build_params` and :func:`init_state` build one scenario (the shapes
+commented below); the engine core stacks B of them on a leading scenario
+axis (``engine/core.py:stack_params``), B = 1 included, and the day step
+runs on the stacked ``(B, ...)`` leaves, as the reference's vmapped day step
+does.
+
 ``params_from_numpy`` / ``state_from_numpy`` take the reference package's
 ``SimParams`` / ``SimState`` as nested dicts of numpy arrays (e.g.
 ``dataclasses.asdict(jax.device_get(x))``), so both packages can run a day

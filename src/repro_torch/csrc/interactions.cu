@@ -32,8 +32,19 @@
 // output. On the card the time goes to each CTA's chain of dependent loads
 // and barriers, and to the longest row run (5 tiles of one location).
 //
+// The scenario axis: one launch serves a batch of B scenarios (the day of a
+// scenario ensemble), grid (NP, B), CTA (k, s) for schedule entry k of
+// scenario s. What varies by scenario is strided by it: pid, sus, inf and
+// src by V, the block flags by V / b, meta by 2, the compacted schedule by
+// NP with n_live[s], and the outputs (acc, cnt, trc by V, edges by 1). loc,
+// start, end, p and the padded schedule come from the week and are shared.
+// A CTA past its scenario's n_live returns at once. Scenario s's outputs are
+// the ones its launch alone gives, bit for bit: no CTA reads or writes
+// another scenario's rows, and the arithmetic below does not depend on s.
+//
 // Design:
-//  * Grid and ownership. One CTA per schedule entry k; CTA k works only if
+//  * Grid and ownership. One CTA per schedule entry k (of each scenario);
+//    CTA k works only if
 //    row_start[k] == 1 (compacted: and k < n_live) and its row block holds
 //    a susceptible visit, and then owns the whole run of its row block:
 //    entries k, k+1, ... while the row index is unchanged (compacted: and
@@ -46,7 +57,7 @@
 //    prefix), padded pair_active & col_has_inf & row_has_sus
 //    (kernel.py:101-105; the schedule's padding repeats the last real tile
 //    with pair_active = 0, src/repro/core/population.py:464-472).
-//  * Launch geometry. NP CTAs of T = G b threads, G = TILES_PER_GROUP in
+//  * Launch geometry. NP x B CTAs of T = G b threads, G = TILES_PER_GROUP in
 //    kernels/interactions/kernel.py (2; at most 1024 threads): a CTA stages
 //    G live tiles of its run at once, thread (g, i) column i of tile g.
 //    Dynamic shared memory shared_words(b, T) * 4 bytes: the loc -> run hash
@@ -231,6 +242,7 @@ struct Args {
   int* trc;
   unsigned long long* edges;
   int num_pairs;
+  int num_visits;  // V: the stride of a scenario's visits and outputs
   int b;  // tile width (block_size)
 };
 
@@ -270,15 +282,16 @@ struct Col {
   float src;
 };
 
+// Column visit c of the scenario whose visits start at sV.
 template <bool kTraced>
-__device__ __forceinline__ Col load_col(const Args& a, long long c) {
+__device__ __forceinline__ Col load_col(const Args& a, long long c, long long sV) {
   Col v;
-  v.pid = a.pid[c];
+  v.pid = a.pid[sV + c];
   v.loc = a.loc[c];
   v.start = a.start[c];
   v.end = a.end[c];
-  v.inf = a.inf_val[c];
-  v.src = kTraced ? a.src_val[c] : 0.0f;
+  v.inf = a.inf_val[sV + c];
+  v.src = kTraced ? a.src_val[sV + c] : 0.0f;
   return v;
 }
 
@@ -327,42 +340,51 @@ __global__ void __launch_bounds__(1024) interactions_kernel(const Args a) {
   int* run_begin = s_sub + 33;  // runs of one loc, + end
 
   const int k = blockIdx.x;
+  // Scenario scen: offsets of its visits and outputs, its block flags and (on
+  // the compacted schedule) its schedule, all in 64-bit.
+  const int scen = blockIdx.y;
+  const long long sV = static_cast<long long>(scen) * a.num_visits;
+  const long long sF = static_cast<long long>(scen) * (a.num_visits / b);
+  const long long sP = kPadded ? 0LL : static_cast<long long>(scen) * a.num_pairs;
+  const int* rows = a.rows + sP;
+  const int* cols = a.cols + sP;
+  const int* col_has_inf = a.col_has_inf + sF;
   const int t = threadIdx.x;
   const int g = t / b;  // staging: thread (g, i) stages column i of tile g
   const int i = t - g * b;
   // First round of loads, all independent: this entry, the T entries from
   // it (the run's tiles, if it starts one) and, speculatively, the column
   // block of entry k + g.
-  const int n = kPadded ? a.num_pairs : a.n_live[0];
-  const int start_k = a.row_start[k];
-  const int rb = a.rows[k];
-  const long long meta0 = a.meta[0];  // [seed, day]
-  const long long meta1 = a.meta[1];
+  const int n = kPadded ? a.num_pairs : a.n_live[scen];
+  const int start_k = a.row_start[sP + k];
+  const int rb = rows[k];
+  const long long meta0 = a.meta[2 * scen];  // [seed, day]
+  const long long meta1 = a.meta[2 * scen + 1];
   const int kk = k + t;
   const bool kk_ok = kk < a.num_pairs;
-  const int row_kk = kk_ok ? a.rows[kk] : -1;
-  const int col_kk = kk_ok ? a.cols[kk] : 0;
+  const int row_kk = kk_ok ? rows[kk] : -1;
+  const int col_kk = kk_ok ? cols[kk] : 0;
   const bool pa_kk = !kPadded || (kk_ok && a.pair_active[kk] == 1);
-  const int col_spec = k + g < a.num_pairs ? a.cols[k + g] : 0;
+  const int col_spec = k + g < a.num_pairs ? cols[k + g] : 0;
   // Uniform over the block: only the first tile of a row run works.
   if (k >= n || start_k != 1) return;
   const long long r0 = static_cast<long long>(rb) * b;
 
   // Second round: the row block, its flag, the chunk's column flags and
   // the speculative column visits.
-  const int sus_blk = a.row_has_sus[rb];
+  const int sus_blk = a.row_has_sus[sF + rb];
   int pid_f = -1, loc_f = 0;
   float start_f = 0.0f, end_f = 0.0f, sus_f = 0.0f, p_f = 0.0f;
   if (t < b) {  // thread t < b holds row lane t
-    pid_f = a.pid[r0 + t];
+    pid_f = a.pid[sV + r0 + t];
     loc_f = a.loc[r0 + t];
     start_f = a.start[r0 + t];
     end_f = a.end[r0 + t];
-    sus_f = a.sus_val[r0 + t];
+    sus_f = a.sus_val[sV + r0 + t];
     p_f = a.p_loc[r0 + t];
   }
-  const bool inf_kk = kk_ok && row_kk == rb && a.col_has_inf[col_kk] > 0;
-  Col cur = load_col<kTraced>(a, static_cast<long long>(col_spec) * b + i);
+  const bool inf_kk = kk_ok && row_kk == rb && col_has_inf[col_kk] > 0;
+  Col cur = load_col<kTraced>(a, static_cast<long long>(col_spec) * b + i, sV);
   // The hash prefix of the day (seed, then the words CONTACT and day),
   // while the second round is in flight.
   unsigned prefix = fmix32(static_cast<unsigned>(meta0) ^ kGolden);
@@ -391,9 +413,9 @@ __global__ void __launch_bounds__(1024) interactions_kernel(const Args a) {
       cb = col_kk;
       live = in_run && inf_kk && pa_kk;
     } else {
-      in_run = kc < n && a.rows[kc] == rb;
-      cb = in_run ? a.cols[kc] : 0;
-      live = in_run && a.col_has_inf[cb] > 0 &&
+      in_run = kc < n && rows[kc] == rb;
+      cb = in_run ? cols[kc] : 0;
+      live = in_run && col_has_inf[cb] > 0 &&
              (!kPadded || a.pair_active[kc] == 1);
     }
     if (t == 0) s_stop = T;
@@ -449,7 +471,7 @@ __global__ void __launch_bounds__(1024) interactions_kernel(const Args a) {
     for (int q0 = 0; q0 < nl; q0 += G) {
       const int nq = min(G, nl - q0);
       if (g < nq && !(q0 == 0 && s_spec[g])) {
-        cur = load_col<kTraced>(a, static_cast<long long>(s_tile[q0 + g]) * b + i);
+        cur = load_col<kTraced>(a, static_cast<long long>(s_tile[q0 + g]) * b + i, sV);
       }
       __syncthreads();  // the previous group's readers are done
       const bool col_ok = g < nq && cur.pid >= 0 && cur.inf != 0.0f;
@@ -546,12 +568,12 @@ __global__ void __launch_bounds__(1024) interactions_kernel(const Args a) {
       // column order from 0.0f.
       if (row_ok) {
         const unsigned* row_bits = bits + t * BW;
-        for (int s = 0; s < nq; ++s) {
-          const int e = s_sub[s + 1];
+        for (int q = 0; q < nq; ++q) {
+          const int e = s_sub[q + 1];
           float part = 0.0f;
           int pcnt = 0;
           int ptrc = 0;
-          for (int m = s_sub[s]; m < e; m = (m | 31) + 1) {
+          for (int m = s_sub[q]; m < e; m = (m | 31) + 1) {
             unsigned word = row_bits[m >> 5] & (0xffffffffu << (m & 31));
             if ((e >> 5) == (m >> 5)) word &= (1u << (e & 31)) - 1u;
             while (word) {
@@ -577,9 +599,9 @@ __global__ void __launch_bounds__(1024) interactions_kernel(const Args a) {
   }
   if (!ready) return;  // no live tile: the zeroed outputs stand
   if (t < b) {
-    a.acc[r0 + t] = acc_r;
-    a.cnt[r0 + t] = cnt_r;
-    if (kTraced) a.trc[r0 + t] = trc_r;
+    a.acc[sV + r0 + t] = acc_r;
+    a.cnt[sV + r0 + t] = cnt_r;
+    if (kTraced) a.trc[sV + r0 + t] = trc_r;
   }
 
   if (!kPadded) {
@@ -591,13 +613,13 @@ __global__ void __launch_bounds__(1024) interactions_kernel(const Args a) {
     if (t == 0) {
       unsigned long long total = 0;
       for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += warp_edges[w];
-      if (total) atomicAdd(a.edges, total);
+      if (total) atomicAdd(a.edges + scen, total);
     }
   }
 }
 
 template <bool kTraced, bool kPadded>
-int launch(const Args& a, int threads, cudaStream_t stream) {
+int launch(const Args& a, int threads, int num_scenarios, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(shared_words(a.b, threads)) * sizeof(int);
   if (smem > 48 * 1024) {  // tiles of 256 and wider
     const cudaError_t e = cudaFuncSetAttribute(interactions_kernel<kTraced, kPadded>,
@@ -605,7 +627,8 @@ int launch(const Args& a, int threads, cudaStream_t stream) {
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  interactions_kernel<kTraced, kPadded><<<a.num_pairs, threads, smem, stream>>>(a);
+  const dim3 grid(static_cast<unsigned>(a.num_pairs), static_cast<unsigned>(num_scenarios));
+  interactions_kernel<kTraced, kPadded><<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -626,9 +649,11 @@ extern "C" long long interactions_shared_bytes(int block_size, int threads) {
 // Plain C entry point for ctypes. Pointers are device pointers on one card;
 // those an instantiation does not use may be null (src_val and trc untraced;
 // pair_active compacted; n_live and edges padded). block_size must be a
-// multiple of 32 and at most 1024, and threads a multiple of block_size and
-// at most 1024 (the Python wrapper checks shapes, types and devices).
-// Launches on `stream`, does not synchronise, and returns the launch's
+// multiple of 32 and at most 1024, threads a multiple of block_size and at
+// most 1024, num_visits (V) a multiple of block_size and num_scenarios (B)
+// in [1, 65535]; per-scenario arrays hold B rows (the header: the scenario
+// axis). The Python wrapper checks shapes, types and devices. Launches once
+// for the batch on `stream`, does not synchronise, and returns the launch's
 // cudaGetLastError() (or cudaErrorInvalidValue for a bad geometry).
 extern "C" int interactions_launch(
     int traced, int padded,
@@ -638,16 +663,21 @@ extern "C" int interactions_launch(
     const int* row_start, const int* pair_active, const int* n_live,
     const int* col_has_inf, const int* row_has_sus, const long long* meta,
     float* acc, int* cnt, int* trc, unsigned long long* edges,
-    int num_pairs, int block_size, int threads, void* stream) {
-  if (bad_geometry(block_size, threads)) return static_cast<int>(cudaErrorInvalidValue);
+    int num_pairs, int block_size, int threads, int num_visits, int num_scenarios,
+    void* stream) {
+  if (bad_geometry(block_size, threads) || num_visits <= 0 || num_visits % block_size ||
+      num_scenarios < 1 || num_scenarios > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_pairs <= 0) return static_cast<int>(cudaSuccess);
   const Args a{pid, loc, start, end, p_loc, sus_val, inf_val, src_val,
                rows, cols, row_start, pair_active, n_live,
                col_has_inf, row_has_sus, meta,
-               acc, cnt, trc, edges, num_pairs, block_size};
-  const auto s = static_cast<cudaStream_t>(stream);
+               acc, cnt, trc, edges, num_pairs, num_visits, block_size};
+  const int B = num_scenarios;
+  const auto st = static_cast<cudaStream_t>(stream);
   if (traced) {
-    return padded ? launch<true, true>(a, threads, s) : launch<true, false>(a, threads, s);
+    return padded ? launch<true, true>(a, threads, B, st) : launch<true, false>(a, threads, B, st);
   }
-  return padded ? launch<false, true>(a, threads, s) : launch<false, false>(a, threads, s);
+  return padded ? launch<false, true>(a, threads, B, st) : launch<false, false>(a, threads, B, st);
 }

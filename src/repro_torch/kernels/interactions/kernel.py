@@ -18,10 +18,19 @@ interface at first use (into ``build/`` beside the package's ``csrc/``,
 keyed by a hash of the source and flags) and called through ``ctypes`` on
 PyTorch's current stream. Nothing here is imported or built when the module
 is imported. Each wrapper counts its own launches in ``<wrapper>.launches``.
-A launch has one CTA per schedule entry, of :func:`threads` threads; the
-outputs are views of one zeroed buffer (one fill per call). The source's
-header states the design: the hoisted hash, the draw only for pairs that
-can count, and why leaving the other terms out keeps every output bitwise.
+A launch has one CTA per (schedule entry, scenario), of :func:`threads`
+threads; the outputs are views of one zeroed buffer (one fill per call). The
+source's header states the design: the hoisted hash, the draw only for pairs
+that can count, and why leaving the other terms out keeps every output
+bitwise.
+
+Every wrapper and plain version takes one scenario, (V,) visits, or a batch
+of B in one call (one launch): ``pid``, ``sus_val``, ``inf_val`` and
+``src_val`` (B, V), the block flags (B, V // b), ``meta`` (B, 2) and, on the
+compacted schedule, ``rows_c``/``cols_c``/``row_start_c`` (B, NP) and
+``n_live`` (B,); ``loc``, ``start``, ``end``, ``p_loc`` and the padded
+schedule are shared. The outputs then carry the leading B too, ``edges``
+(B,).
 
 :func:`interactions_compact_plain` and :func:`interactions_padded_plain` are
 the plain PyTorch versions: the same inputs, the same per-tile
@@ -65,7 +74,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     fn = lib.interactions_launch
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 20
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.interactions_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.interactions_shared_bytes.restype = ctypes.c_longlong
@@ -93,14 +102,18 @@ _FLAGS = ("col_has_inf", "row_has_sus", "meta")
 COMPACT_ARGS = (*_VISITS, "rows_c", "cols_c", "row_start_c", "n_live", *_FLAGS)
 PADDED_ARGS = (*_VISITS, "row_idx", "col_idx", "row_start", "pair_active", *_FLAGS)
 _FLOAT = ("start", "end", "p_loc", "sus_val", "inf_val", "src_val")
+# Per scenario (a leading B in a batched call); the rest is shared.
+_SCENARIO = ("pid", "sus_val", "inf_val", "src_val", "col_has_inf", "row_has_sus", "meta")
+_COMPACT_SCHEDULE = ("rows_c", "cols_c", "row_start_c")
+MAX_SCENARIOS = 65535  # the grid's y extent
 
 
 def _launch(args, src_val, *, padded: bool, block_size: int):
     """Check the wrapper's positional ``args`` (and ``src_val`` for the
     traced arity), allocate the zeroed outputs and launch the instantiation on
-    the current stream. Raises on inputs the kernel does not take, and if
-    the launch is refused. Returns ``(acc, cnt, trc or None, edges or
-    None)``."""
+    the current stream, once for the whole batch. Raises on inputs the
+    kernel does not take, and if the launch is refused. Returns ``(acc,
+    cnt, trc or None, edges or None)``."""
     names = PADDED_ARGS if padded else COMPACT_ARGS
     if len(args) != len(names):
         raise TypeError(f"expected {len(names)} arguments {names}, got {len(args)}")
@@ -108,11 +121,19 @@ def _launch(args, src_val, *, padded: bool, block_size: int):
     if src_val is not None:
         a["src_val"] = src_val
     b = block_size
+    batched = a["pid"].dim() == 2
+    per_scenario = _SCENARIO + (() if padded else _COMPACT_SCHEDULE)
+    if not batched:  # one scenario: a batch of 1 (n_live is (1,) already)
+        a = {k: t[None] if k in per_scenario else t for k, t in a.items()}
     pid = a["pid"]
-    V = pid.shape[0]
+    if pid.dim() != 2:
+        raise ValueError(f"pid has shape {tuple(pid.shape)}, expected (V,) or (B, V)")
+    B, V = pid.shape
     if b % 32 or not 32 <= b <= 1024 or V % b:
         raise ValueError(f"block_size {b} must be a multiple of 32 in "
                          f"[32, 1024] dividing V={V}")
+    if not 1 <= B <= MAX_SCENARIOS:
+        raise ValueError(f"{B} scenarios: a launch takes 1 to {MAX_SCENARIOS}")
     for name, t in a.items():
         want = (torch.float32 if name in _FLOAT else torch.int64
                 if name == "meta" else torch.int32)
@@ -121,40 +142,45 @@ def _launch(args, src_val, *, padded: bool, block_size: int):
         if t.dtype != want or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {want}, got {t.dtype}")
     for name in (*_VISITS[1:], "src_val"):
-        if name in a and a[name].shape != (V,):
-            raise ValueError(f"{name} has shape {tuple(a[name].shape)}, expected ({V},)")
+        want = (B, V) if name in _SCENARIO else (V,)
+        if name in a and a[name].shape != want:
+            raise ValueError(f"{name} has shape {tuple(a[name].shape)}, expected {want}")
     sched = names[7:10] + (("pair_active",) if padded else ())
-    NP = a[sched[0]].shape[0]
-    if any(a[k].shape != (NP,) for k in sched):
-        raise ValueError(f"schedule arrays {sched} must all be (NP,)")
-    if not padded and a["n_live"].shape != (1,):
-        raise ValueError("n_live must be (1,)")
-    if (a["col_has_inf"].shape != (V // b,) or a["row_has_sus"].shape != (V // b,)
-            or a["meta"].shape != (2,)):
-        raise ValueError("block flags must be (V // b,) and meta (2,)")
+    NP = a[sched[0]].shape[-1]
+    want = (NP,) if padded else (B, NP)
+    if any(a[k].shape != want for k in sched):
+        raise ValueError(f"schedule arrays {sched} must all be {want}")
+    if not padded and a["n_live"].shape != (B,):
+        raise ValueError(f"n_live must be ({B},)")
+    if (a["col_has_inf"].shape != (B, V // b) or a["row_has_sus"].shape != (B, V // b)
+            or a["meta"].shape != (B, 2)):
+        raise ValueError("block flags must be (V // b,) and meta (2,) per scenario")
 
     # One zeroed buffer holds every output (one fill, not four): acc, cnt,
-    # trc when traced, then the edges slot (8-byte aligned: V is even), as
-    # non-overlapping views.
+    # trc when traced, each (B, V), then the (B,) edges (8-byte aligned: V
+    # is even), as non-overlapping views.
     nout = 2 if src_val is None else 3
-    buf = torch.zeros((nout * V + 2,), dtype=torch.int32, device=pid.device)
-    acc = buf[:V].view(torch.float32)
-    cnt = buf[V:2 * V]
-    trc = None if src_val is None else buf[2 * V:3 * V]
-    edges = None if padded else buf[nout * V:].view(torch.int64).view(())
+    buf = torch.zeros((nout * B * V + 2 * B,), dtype=torch.int32, device=pid.device)
+    acc = buf[:B * V].view(torch.float32).view(B, V)
+    cnt = buf[B * V:2 * B * V].view(B, V)
+    trc = None if src_val is None else buf[2 * B * V:3 * B * V].view(B, V)
+    edges = None if padded else buf[nout * B * V:].view(torch.int64)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(pid.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().interactions_launch(
             int(src_val is not None), int(padded),
-            *(ptr(a[n]) for n in _VISITS), ptr(src_val), *(ptr(a[n]) for n in sched[:3]),
+            *(ptr(a[n]) for n in _VISITS), ptr(a.get("src_val")),
+            *(ptr(a[n]) for n in sched[:3]),
             ptr(a.get("pair_active")), ptr(a.get("n_live")),
             *(ptr(a[n]) for n in _FLAGS),
             acc.data_ptr(), cnt.data_ptr(), ptr(trc), ptr(edges), NP, b, threads(b),
-            stream,
+            V, B, stream,
         )
     if err != 0:
         raise RuntimeError(f"interactions kernel launch failed: CUDA error {err}")
+    if not batched:
+        return tuple(None if t is None else t[0] for t in (acc, cnt, trc, edges))
     return acc, cnt, trc, edges
 
 
@@ -163,9 +189,9 @@ def interactions_compact_cuda(*args, block_size: int):
 
     ``args`` are :data:`COMPACT_ARGS`: int32 pid, loc, rows_c, cols_c,
     row_start_c, n_live (1,), col_has_inf, row_has_sus; float32 start, end,
-    p_loc, sus_val, inf_val; int64 meta (2,) = [seed, day] as u32 values.
-    Raises on anything else, and if the launch is refused. Returns
-    ``(acc, cnt, edges)``."""
+    p_loc, sus_val, inf_val; int64 meta (2,) = [seed, day] as u32 values;
+    or a batch of them (the module's docstring). Raises on anything else,
+    and if the launch is refused. Returns ``(acc, cnt, edges)``."""
     acc, cnt, _, edges = _launch(args, None, padded=False, block_size=block_size)
     interactions_compact_cuda.launches += 1
     return acc, cnt, edges
@@ -258,6 +284,21 @@ def _fold_tiles(visits, src_val, rows, cols, guard, meta, b):
     return acc, cnt, trc, outs[1][1].sum(dtype=torch.int64)
 
 
+def _by_scenario(plain, arguments: dict, names, per_scenario):
+    """A plain version over a batch: ``plain`` on each scenario's slice of
+    the ``per_scenario`` arguments (``n_live`` as a (1,) slice), outputs
+    stacked on the leading axis."""
+    B = arguments["pid"].shape[0]
+    src_val = arguments["src_val"]
+    outs = []
+    for s in range(B):
+        pick = lambda n: (arguments[n][s:s + 1] if n == "n_live" else arguments[n][s]
+                          if n in per_scenario else arguments[n])
+        outs.append(plain(*(pick(n) for n in names), block_size=arguments["block_size"],
+                          src_val=None if src_val is None else src_val[s]))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def interactions_compact_plain(
     pid, loc, start, end, p_loc, sus_val, inf_val,
     rows_c, cols_c, row_start_c, n_live, col_has_inf, row_has_sus, meta,
@@ -266,7 +307,11 @@ def interactions_compact_plain(
     """Plain PyTorch version of :func:`interactions_compact_cuda` (and, with
     ``src_val``, of :func:`interactions_compact_traced_cuda`): the same
     inputs and outputs, bitwise. Walks the live prefix; the kernel's guard
-    ``row_has_sus & col_has_inf`` applies per tile."""
+    ``row_has_sus & col_has_inf`` applies per tile. A batch runs scenario by
+    scenario."""
+    if pid.dim() == 2:
+        return _by_scenario(interactions_compact_plain, locals(), COMPACT_ARGS,
+                            _SCENARIO + _COMPACT_SCHEDULE + ("n_live",))
     n = int(n_live[0])
     rows, cols = rows_c[:n].long(), cols_c[:n].long()
     guard = (row_has_sus[rows] > 0) & (col_has_inf[cols] > 0)
@@ -285,7 +330,10 @@ def interactions_padded_plain(
     ``src_val``, of :func:`interactions_padded_traced_cuda`): the same
     inputs and outputs, bitwise. Walks each row run of the padded schedule
     from its ``row_start`` entry and adds the tiles that pass the full guard
-    ``pair_active & col_has_inf & row_has_sus``, in schedule order."""
+    ``pair_active & col_has_inf & row_has_sus``, in schedule order. A batch
+    runs scenario by scenario."""
+    if pid.dim() == 2:
+        return _by_scenario(interactions_padded_plain, locals(), PADDED_ARGS, _SCENARIO)
     NP = row_idx.shape[0]
     rows, cols = row_idx.long(), col_idx.long()
     k = torch.arange(NP, device=rows.device)

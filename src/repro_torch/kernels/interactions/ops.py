@@ -32,6 +32,13 @@ All take the reference's arguments: the (V,) location-sorted visit arrays
 ``p_loc``/``sus_val``/``inf_val`` float32, the (NP,) block schedule
 ``row_idx``/``col_idx``/``row_start``/``pair_active``, the (V // b,) flags
 and ``meta`` = int64 ``[seed, day]``.
+
+**A batch of scenarios** goes through the same functions in one call (one
+kernel launch): what varies by scenario gains a leading axis B, ``pid``,
+``sus_val``, ``inf_val`` and ``src_val`` (B, V), the flags (B, V // b) and
+``meta`` (B, 2), and so do the outputs (``edges`` (B,)); ``loc``,
+``start``, ``end``, ``p_loc`` and the schedule come from the week and are
+shared. Each scenario's outputs are bitwise those of its call alone.
 """
 
 from __future__ import annotations
@@ -42,8 +49,8 @@ from repro_torch.kernels.interactions import kernel as _kernel
 
 
 def _block_any_positive(val, pid, num_blocks, block_size):
-    flags = ((val > 0.0) & (pid >= 0)).reshape(num_blocks, block_size)
-    return flags.any(dim=1).to(torch.int32)
+    flags = ((val > 0.0) & (pid >= 0)).reshape(*val.shape[:-1], num_blocks, block_size)
+    return flags.any(dim=-1).to(torch.int32)
 
 
 def col_has_infectious(inf_val, pid, num_blocks, block_size):
@@ -58,26 +65,28 @@ def row_has_susceptible(sus_val, pid, num_blocks, block_size):
 
 def live_tiles(row_idx, col_idx, pair_active, col_has_inf, row_has_sus):
     """The per-tile liveness predicate: scheduled, not padding, and with
-    both an infectious column block and a susceptible row block."""
+    both an infectious column block and a susceptible row block. With
+    (B, V // b) flags, a (B, NP) mask."""
     return (
         (pair_active == 1)
-        & (col_has_inf[col_idx] > 0)
-        & (row_has_sus[row_idx] > 0)
+        & (col_has_inf[..., col_idx] > 0)
+        & (row_has_sus[..., row_idx] > 0)
     )
 
 
 def compact_schedule(row_idx, col_idx, pair_active, col_has_inf, row_has_sus):
     """Live tiles first, original order kept (stable sort on the dead flag).
 
-    Returns int32 ``(rows_c, cols_c, row_start_c, n_live)``; ``n_live`` is a
-    (1,) device tensor. Live tiles of one row block stay consecutive, so a
-    change of row index marks the start of a row run."""
+    Returns int32 ``(rows_c, cols_c, row_start_c, n_live)``, ``n_live`` a
+    (1,) device tensor; with (B, V // b) flags, one compacted schedule per
+    scenario: (B, NP) and ``n_live`` (B,). Live tiles of one row block stay
+    consecutive, so a change of row index marks the start of a row run."""
     live = live_tiles(row_idx, col_idx, pair_active, col_has_inf, row_has_sus)
-    order = torch.sort(torch.where(live, 0, 1), stable=True).indices
+    order = torch.sort(torch.where(live, 0, 1), dim=-1, stable=True).indices
     rows_c = row_idx[order].to(torch.int32)
     cols_c = col_idx[order].to(torch.int32)
-    n_live = live.sum(dtype=torch.int32).reshape(1)
-    prev = torch.cat([rows_c[:1] - 1, rows_c[:-1]])
+    n_live = live.sum(dim=-1, dtype=torch.int32).reshape(-1)
+    prev = torch.cat([rows_c[..., :1] - 1, rows_c[..., :-1]], dim=-1)
     row_start_c = (rows_c != prev).to(torch.int32)
     return rows_c, cols_c, row_start_c, n_live
 
@@ -98,8 +107,9 @@ def interactions_compact_edges(
     """Backend ``pallas-compact``. Returns ``(acc (V,) f32, cnt (V,) int32,
     edges () int64)``: per-visit propensity sums (before tau), per-visit
     contact counts, and their total, the traversed-edge count; with
-    ``src_val``, ``(acc, cnt, trc (V,) int32, edges)``. ``row_start`` is
-    not read: compaction derives the run starts of its own order."""
+    ``src_val``, ``(acc, cnt, trc (V,) int32, edges)``; for a batch, each
+    with the leading B. ``row_start`` is not read: compaction derives the
+    run starts of its own order."""
     del row_start
     rows_c, cols_c, row_start_c, n_live = compact_schedule(
         row_idx, col_idx, pair_active, col_has_inf, row_has_sus
@@ -150,7 +160,7 @@ def interactions_auto_edges(*args, backend: str, block_size: int):
     if backend == "pallas-compact":
         return interactions_compact_edges(*args, block_size=block_size)
     acc, cnt = interactions_padded(*args, block_size=block_size)
-    return acc, cnt, cnt.sum(dtype=torch.int64)
+    return acc, cnt, cnt.sum(dim=-1, dtype=torch.int64)
 
 
 def interactions_auto_traced(*args, backend: str, block_size: int, src_val):
@@ -162,4 +172,4 @@ def interactions_auto_traced(*args, backend: str, block_size: int, src_val):
             *args, block_size=block_size, src_val=src_val)
         return acc, cnt, edges, trc
     acc, cnt, trc = interactions_padded(*args, block_size=block_size, src_val=src_val)
-    return acc, cnt, cnt.sum(dtype=torch.int64), trc
+    return acc, cnt, cnt.sum(dim=-1, dtype=torch.int64), trc

@@ -6,7 +6,7 @@ Layer parameters are stacked on a leading axis under the reference's names
 and shapes; the forward walks them with a Python loop (the reference's
 ``lax.scan``). The other families raise ``NotImplementedError``: their
 blocks (``moe``, ``ssd``, ``rglru``, ``encdec``, the VLM front end) are not
-ported yet (ROADMAP queue 1 item 14).
+ported yet (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ def require_dense(cfg) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the '{cfg.family}' family is not ported yet; the port "
-            "serves the dense family only (ROADMAP queue 1 item 14)"
+            "serves the dense family only (ROADMAP queue 1 item 7)"
         )
 
 

@@ -4,7 +4,8 @@ The reference runs twin-2k for 16 days, with no intervention, a classic one,
 or a test-trace-isolate preset (whose state then holds people tested,
 traced and isolated); its state, params and week arrays
 are carried into the port (``state_from_numpy``, ``params_from_numpy``,
-``week_from_numpy``), and both packages step one more day.
+``week_from_numpy``; params and state as the port's batch of one), and both
+packages step one more day.
 
 Tolerances: per-visit dispatch values, masks, the per-agent state and the
 integer ``contacts``/``edges``/traced-contact counts are exact; the exposure ``A`` is held to rtol 1e-5 (f32 sum order
@@ -40,6 +41,7 @@ from repro_torch.core import transmission as t_tx
 from repro_torch.data import digital_twin_population as t_twin
 from repro_torch.engine import EngineCore as TCore
 from repro_torch.engine import day as t_day
+from repro_torch.engine.core import stack_params
 from repro_torch.kernels.interactions import kernel as t_kernel
 
 WRAPPERS = (t_kernel.interactions_compact_cuda, t_kernel.interactions_compact_traced_cuda,
@@ -60,7 +62,8 @@ def _np(tree):
 
 def _carried(pops, preset):
     """(reference core, its params & mid-epidemic state, the port's core,
-    and the same params/state/week carried into the port)."""
+    and the same params/state/week carried into the port, params and state
+    as a batch of one)."""
     jpop, tpop = pops
     jcore = JCore.single(jpop, j_disease.covid_model(), j_tx.TransmissionModel(tau=TAU),
                          interventions=J_PRESETS[preset], seed=SEED, backend="compact")
@@ -69,8 +72,8 @@ def _carried(pops, preset):
     tcore = TCore.single(tpop, t_disease.covid_model(), t_tx.TransmissionModel(tau=TAU),
                          interventions=T_PRESETS[preset], seed=SEED, device="cpu")
     carried = (
-        t_sim.params_from_numpy(_np(jparams), device="cpu"),
-        t_sim.state_from_numpy(_np(jstate), device="cpu"),
+        stack_params([t_sim.params_from_numpy(_np(jparams), device="cpu")]),
+        stack_params([t_sim.state_from_numpy(_np(jstate), device="cpu")]),
         t_inter.week_from_numpy(jax.device_get(jcore.week), jpop.num_people,
                                  device="cpu"),
     )
@@ -120,24 +123,27 @@ def _j_visits(jcore, p, s, jnew):
 
 
 def _t_visits(tcore, p, s, week):
+    """The port's phases 1-4 by hand on its batch of one, returned for
+    scenario 0."""
     P, L = tcore.pop.num_people, tcore.pop.num_locations
-    take = lambda k: week[k][int(s.day) % 7]
+    take = lambda k: week[k][int(s.day[0]) % 7]
     pid, loc = take("pid"), take("loc")
     ok, lo, sm, im, vacc = t_iv.apply_iv_params(tcore.iv_slots, p.iv, s.iv_active,
                                                 s.vaccinated, P, L)
     if tcore.pa_slots:
-        ok = ok & ~(s.day < s.isolated_until)
-    chans = torch.stack([p.sus_table[s.health] * p.beta_sus * sm,
-                         p.inf_table[s.health] * p.beta_inf * im, ok.float()], -1)
+        ok = ok & ~(s.day[:, None] < s.isolated_until)
+    look = lambda table: table.gather(1, s.health.long())
+    chans = torch.stack([look(p.sus_table) * p.beta_sus * sm,
+                         look(p.inf_table) * p.beta_inf * im, ok.float()], -1)
     vv = tcore.topo.dispatch(pid, chans)
-    active = (pid >= 0) & (vv[:, 2] > 0.0) & lo[loc.clamp(max=L - 1)]
+    active = (pid >= 0) & (vv[..., 2] > 0.0) & lo[:, loc.clamp(max=L - 1)]
     ex = t_day.exposure(tcore.topo, tcore.static, week, p, s)
     assert torch.equal(vacc, ex.vaccinated)
-    out = dict(sus_v=vv[:, 0] * active, inf_v=vv[:, 1] * active, active=active,
+    out = dict(sus_v=vv[..., 0] * active, inf_v=vv[..., 1] * active, active=active,
                cnt=ex.cnt, edges=ex.edges, A=ex.A, vaccinated=vacc)
     if ex.trc_p is not None:
         out["trc_p"] = ex.trc_p
-    return {k: v.numpy() for k, v in out.items()}, ex
+    return {k: v[0].numpy() for k, v in out.items()}, ex
 
 
 @pytest.mark.parametrize("preset", ["none", "vax-seniors", "tti", "tti-no-trace"])
@@ -152,7 +158,7 @@ def test_one_day_matches_reference(pops, preset):
     for k in tcore.week:
         assert torch.equal(tweek[k], tcore.week[k]), k
     if preset == "vax-seniors":
-        assert bool(tstate.iv_active[0])  # DayRange(14) is active on day 16
+        assert bool(tstate.iv_active[0, 0])  # DayRange(14) is active on day 16
     if preset.startswith("tti"):  # a state with live per-agent fields
         assert bool(tstate.tested.any())
         assert bool((tstate.isolated_until > tstate.day).any())
@@ -178,23 +184,23 @@ def test_one_day_matches_reference(pops, preset):
     # the take masks: the port's per-slot takes are the reference's newly tested
     if preset.startswith("tti"):
         newly_tested = np.asarray(jnew.tested & ~jstate.tested)
-        np.testing.assert_array_equal(ex.takes[0].numpy(), newly_tested)
+        np.testing.assert_array_equal(ex.takes[0][0].numpy(), newly_tested)
         assert newly_tested.any()
 
-    u = t_rng.uniform(tparams.seed, t_rng.INFECT, tstate.day,
+    u = t_rng.uniform(tparams.seed[0], t_rng.INFECT, tstate.day[0],
                       torch.arange(tcore.pop.num_people)).numpy()
-    susceptible = tparams.sus_table[tstate.health].numpy() > 0
+    susceptible = tparams.sus_table[0][tstate.health[0]].numpy() > 0
     exposed = (jv["A"] > 0) | (tv["A"] > 0)
     in_band = susceptible & exposed & (
         (np.abs(u - np.exp(-jv["A"].astype(np.float64))) <= BAND)
         | (np.abs(u - np.exp(-tv["A"].astype(np.float64))) <= BAND))
     out = ~in_band
-    jh, th = np.asarray(jnew.health), tnew.health.numpy()
+    jh, th = np.asarray(jnew.health), tnew.health[0].numpy()
     np.testing.assert_array_equal(th[out], jh[out])
-    np.testing.assert_allclose(tnew.dwell.numpy()[out], np.asarray(jnew.dwell)[out],
+    np.testing.assert_allclose(tnew.dwell[0].numpy()[out], np.asarray(jnew.dwell)[out],
                                rtol=1e-6, atol=0)
     for f in ("vaccinated", "iv_active", "tested", "traced", "isolated_until"):
-        np.testing.assert_array_equal(getattr(tnew, f).numpy(),
+        np.testing.assert_array_equal(getattr(tnew, f)[0].numpy(),
                                       np.asarray(getattr(jnew, f)), err_msg=f)
     for k in ("day", "contacts", "edges", "tests_used", "isolated", "traced"):
         assert int(tstats[k]) == int(jstats[k]), k

@@ -31,7 +31,7 @@ def test_device_defaults_to_cuda(pop):
 
 
 def test_core_uploads_the_packed_week_once(pop):
-    core = EngineCore(pop, Scenario(name="s", disease=disease.covid_model()),
+    core = EngineCore(pop, [Scenario(name="s", disease=disease.covid_model())],
                       block_size=64, device="cpu")
     week = build_week_data(pop, 64)
     assert set(core.week) == {"pid", "loc", "start", "end", "p", "row", "col",
@@ -48,17 +48,18 @@ def test_core_uploads_the_packed_week_once(pop):
 def test_run_days_keeps_history_on_device_and_run1_matches(pop):
     core = EngineCore.single(pop, disease.covid_model(),
                              transmission.TransmissionModel(tau=2e-5), device="cpu")
-    final, hist = core.run_days(6)
-    assert isinstance(hist, torch.Tensor) and hist.shape == (6, len(STAT_KEYS))
-    assert hist.dtype == torch.int64 and int(final.day) == 6
+    final, carries, hist, dailies = core.run_days(6)
+    assert isinstance(hist, torch.Tensor) and hist.shape == (6, len(STAT_KEYS), 1)
+    assert hist.dtype == torch.int64 and final.day.tolist() == [6]
+    assert carries == () and dailies == {}
     final1, h1 = core.run1(6)
     as_np = hist_to_numpy(hist)
     for k in STAT_KEYS:
-        np.testing.assert_array_equal(as_np[k], h1[k])
+        np.testing.assert_array_equal(as_np[k][:, 0], h1[k])
     np.testing.assert_array_equal(h1["day"], np.arange(6))
     np.testing.assert_array_equal(h1["edges"], h1["contacts"])
     assert h1["cumulative"][-1] >= 10 * 6  # seeding ran
-    assert torch.equal(final.health, final1.health)
+    assert torch.equal(final.health[0], final1.health)
 
 
 def test_cli_prints_the_reference_summary_fields(capsys):

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the four interaction kernels bitwise against
-their plain versions and each other, the launch counters, the wrappers'
-input checks, and the main path and the TTI path launching their kernel
-once a day without a host sync; the flash-attention kernel against its
+their plain versions and each other, one scenario or a batch in one launch,
+the launch counters, the wrappers' input checks, and the main path, the TTI
+path and a scenario ensemble launching their kernel once a day without a
+host sync; the flash-attention kernel against its
 plain version, its wrapper's checks, and a prefill launching it once per
 layer.
 
@@ -148,16 +149,16 @@ def test_main_path_launches_the_kernel_daily_without_sync(cuda):
     pop = get_epidemic("twin-2k").build()
     core = EngineCore.single(pop, disease.covid_model(),
                              transmission.TransmissionModel(tau=2e-5), device=cuda)
-    state = core.init_state1()
+    state = core.init_state()
     torch.cuda.synchronize()
     t_kernel.interactions_compact_cuda.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, hist = core.run_days(10, state=state)
+        _, _, hist, _ = core.run_days(10, state=state)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert t_kernel.interactions_compact_cuda.launches == 10
-    _, again = core.run_days(10)
+    _, _, again, _ = core.run_days(10)
     assert torch.equal(hist, again)
     h = hist.cpu().numpy()
     assert (h[:, 5] == h[:, 6]).all()  # contacts == edges
@@ -174,13 +175,13 @@ def test_tti_path_launches_the_traced_kernel_daily_without_sync(cuda):
                                  transmission.TransmissionModel(tau=2e-5),
                                  interventions=INTERVENTION_PRESETS["tti"],
                                  device=cuda, backend=backend)
-        state = core.init_state1()
+        state = core.init_state()
         torch.cuda.synchronize()
         for w in WRAPPERS.values():
             w.launches = 0
         torch.cuda.set_sync_debug_mode("error")
         try:
-            _, hist = core.run_days(20, state=state)
+            _, _, hist, _ = core.run_days(20, state=state)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert {k: w.launches for k, w in WRAPPERS.items()} == {
@@ -326,6 +327,101 @@ def test_kernels_bitwise_at_other_tile_widths(cuda, b):
         for x, g in zip(cpu, gpu):
             assert x.dtype == g.dtype and torch.equal(x, g.cpu())
         assert int(gpu[1].sum()) > 0
+
+
+def _batch_of(case, n, b):
+    """``n`` scenarios on one layout (the case's visits, windows, p and
+    schedule): scenario 0 is the case, each other has a share of its visits
+    inactive, its own scaled and rolled channels and sources, its flags and
+    meta; as (batched args, batched src, [(args, src) per scenario])."""
+    base, src0 = case
+    V = base[0].shape[0]
+    nb = V // b
+    scen = [(base, src0)]
+    for i in range(1, n):
+        rs = np.random.default_rng(50 + i)
+        off = torch.as_tensor(rs.random(V) < 0.1 * i) | (base[0] < 0)
+        pid = torch.where(off, -1, base[0])
+        scale = torch.as_tensor(rs.uniform(0.5, 1.5, V).astype(np.float32))
+        sus = torch.where(off, 0.0, base[5] * scale)
+        inf = torch.where(off, 0.0, base[6].roll(i))
+        src = torch.where(inf > 0, src0.roll(i), 0.0)
+        args = (pid, *base[1:5], sus, inf, *base[7:11],
+                t_ops.col_has_infectious(inf, pid, nb, b),
+                t_ops.row_has_susceptible(sus, pid, nb, b),
+                torch.tensor([1000 + i, 3 + i], dtype=torch.int64))
+        scen.append((args, src))
+    per = (0, 5, 6, 11, 12, 13)
+    batched = tuple(torch.stack([a[j] for a, _ in scen]) if j in per else base[j]
+                    for j in range(14))
+    return batched, torch.stack([s for _, s in scen]), scen
+
+
+def _run(kernel, args, src, b):
+    backend = "pallas" if kernel.startswith("padded") else "pallas-compact"
+    if kernel.endswith("traced"):
+        return t_ops.interactions_auto_traced(*args, backend=backend, block_size=b, src_val=src)
+    return t_ops.interactions_auto_edges(*args, backend=backend, block_size=b)
+
+
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
+@pytest.mark.parametrize("b", [64, 128])
+def test_batched_kernel_one_launch_bitwise_per_scenario(cuda, kernel, b):
+    """Four scenarios in one launch: each scenario's outputs bitwise equal to
+    the plain version's and to its own launch alone."""
+    size = (20000, 1500, 6000) if b == 128 else (3000, 200, 1000)
+    batched, src, scen = _batch_of(_case(2, b, *size), 4, b)
+    cpu = _run(kernel, batched, src, b)
+    before = WRAPPERS[kernel].launches
+    gpu = _run(kernel, [a.to(cuda) for a in batched], src.to(cuda), b)
+    torch.cuda.synchronize()
+    assert WRAPPERS[kernel].launches == before + 1
+    for c, g in zip(cpu, gpu):
+        assert c.dtype == g.dtype and c.shape[0] == len(scen) and torch.equal(c, g.cpu())
+    for s, (args, src_s) in enumerate(scen):
+        alone = _run(kernel, [a.to(cuda) for a in args], src_s.to(cuda), b)
+        for g, a in zip(gpu, alone):
+            assert torch.equal(g[s], a)
+    assert bool((gpu[1].sum(dim=1) > 0).all())
+
+
+def test_batched_wrapper_refuses_mismatched_shapes(cuda):
+    batched, src, _ = _batch_of(_case(0, 64, 300, 30, 90), 2, 64)
+    args = [a.to(cuda) for a in batched]
+    with pytest.raises(ValueError, match="loc"):
+        t_ops.interactions_padded(*args[:1], args[1][None].expand(2, -1).contiguous(),
+                                  *args[2:], block_size=64)
+    with pytest.raises(ValueError, match="meta"):
+        t_ops.interactions_padded(*args[:13], args[13][:1], block_size=64)
+    rc = t_ops.compact_schedule(args[7], args[8], *args[10:13])
+    assert rc[0].shape == (2, args[7].shape[0]) and rc[3].shape == (2,)
+    with pytest.raises(ValueError, match="n_live"):
+        t_kernel.interactions_compact_cuda(*args[:7], *rc[:3], rc[3][:1], *args[11:],
+                                           block_size=64)
+
+
+def test_ensemble_launches_once_a_day_for_the_batch(cuda):
+    """A B = 4 ensemble: one launch a day for all four scenarios, no host
+    sync, and each column bitwise equal to its own batch-of-one run."""
+    from repro_torch.configs.sweep import ScenarioBatch
+
+    pop = get_epidemic("twin-2k").build()
+    batch = ScenarioBatch.from_product(
+        interventions={n: INTERVENTION_PRESETS[n] for n in ("none", "lockdown")},
+        tau=2e-5, seeds=[0, 1])
+    core = EngineCore(pop, batch, device=cuda)
+    state = core.init_state()
+    torch.cuda.synchronize()
+    t_kernel.interactions_compact_cuda.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, hist, _ = core.run_days(15, state=state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert t_kernel.interactions_compact_cuda.launches == 15
+    for i, scen in enumerate(batch):
+        _, _, one, _ = EngineCore(pop, [scen], device=cuda).run_days(15)
+        assert torch.equal(one[..., 0], hist[..., i]), scen.name
 
 
 # Flash attention: the kernel and its plain version run the same float32

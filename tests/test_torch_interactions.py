@@ -480,3 +480,79 @@ def test_contributing_pairs_alone_give_the_plain_sums(case):
         assert got.dtype == want.dtype and torch.equal(got, want)
     if kind == "crafted" or (kind == "extreme" and which == "all_infectious"):
         assert int(cnt.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The scenario axis: a batch of scenarios on one week layout in one call.
+# ---------------------------------------------------------------------------
+
+_PER_SCENARIO = (0, 5, 6, 11, 12, 13)  # pid, sus_val, inf_val, the flags, meta
+
+
+def _two_scenarios():
+    """A B = 2 stack on one packed layout, as the day step builds it: the
+    visits, their windows, p and the schedule are shared; scenario 1 has a
+    third of the visits inactive (pid -1), its own channels, tracing
+    sources, flags and meta. Returns (batched args, batched src, [(args,
+    src) of each scenario])."""
+    args0, src0 = _random(0, True, np.random.default_rng(100))
+    rs = np.random.default_rng(101)
+    V = len(args0[0])
+    off = (rs.random(V) < 0.3) | (args0[0] < 0)
+    pid1 = np.where(off, -1, args0[0]).astype(np.int32)
+    sus1 = np.where(off, 0.0, args0[5] * rs.uniform(0.5, 1.5, V)).astype(np.float32)
+    inf1 = np.where(~off & (rs.random(V) < 0.3), rs.uniform(0.1, 1.0, V), 0.0).astype(np.float32)
+    src1 = np.where((inf1 > 0) & (rs.random(V) < 0.5), 1.0, 0.0).astype(np.float32)
+    nb = V // B
+    flag = lambda v, pid: ((v > 0) & (pid >= 0)).reshape(nb, B).any(1).astype(np.int32)
+    args1 = list(args0)
+    args1[0], args1[5], args1[6] = pid1, sus1, inf1
+    args1[11], args1[12] = flag(inf1, pid1), flag(sus1, pid1)
+    args1[13] = np.array([0xFFFFFFF0, 17], np.int64)
+    scen = [(tuple(args0), src0), (tuple(args1), src1)]
+    batched = tuple(np.stack([args0[i], args1[i]]) if i in _PER_SCENARIO else args0[i]
+                    for i in range(len(args0)))
+    return batched, np.stack([src0, src1]), scen
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_batched_plain_equals_each_scenario_alone(backend):
+    """The batched call (one call for both scenarios) gives each scenario
+    bitwise what its own call gives, untraced and traced."""
+    batched, src, scen = _two_scenarios()
+    outs = (_port(batched, backend), _port(batched, backend, src))
+    assert outs[0][0].shape == (2, len(batched[1])) and outs[0][2].shape == (2,)
+    for s, (args, src_s) in enumerate(scen):
+        for got, want in zip(outs, (_port(args, backend), _port(args, backend, src_s))):
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g[s], w)
+    assert int(outs[1][3][1].sum()) > 0 and int(outs[0][1][0].sum()) != int(outs[0][1][1].sum())
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_batched_matches_vmap_of_the_reference(backend):
+    """jax.vmap of the reference's Pallas pass (interpret mode) over the same
+    B = 2 stack: integers exact, acc within rtol 1e-5 (sum order)."""
+    import jax
+
+    batched, src, _ = _two_scenarios()
+    shared = {i: jnp.asarray(a) for i, a in enumerate(batched) if i not in _PER_SCENARIO}
+
+    def call(pid, sus, inf, chi, rhs, meta, src_s=None):
+        a = [shared.get(i) for i in range(14)]
+        a[0], a[5], a[6], a[11], a[12], a[13] = pid, sus, inf, chi, rhs, meta
+        if src_s is None:
+            return j_ops.interactions_auto_edges(*a, block_size=B, backend=backend)
+        return j_ops.interactions_auto_traced(*a, block_size=B, backend=backend, src_val=src_s)
+
+    per = [jnp.asarray(batched[i]) for i in _PER_SCENARIO[:-1]]
+    per.append(jnp.asarray(batched[13].astype(np.uint32)))
+    for want, got in ((jax.vmap(call)(*per), _port(batched, backend)),
+                      (jax.vmap(call)(*per, jnp.asarray(src)), _port(batched, backend, src))):
+        want = [np.asarray(w) for w in want]
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=1e-5, atol=0)
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        np.testing.assert_array_equal(got[2].numpy(), want[2].astype(np.int64))
+        if len(want) == 4:
+            np.testing.assert_array_equal(got[3].numpy(), want[3])
+    assert (want[2] > 0).all()

@@ -46,24 +46,27 @@ def pops():
 
 
 def _stepped(core, days=DAYS):
-    """The port's run one day at a time through its two phases, with the
-    first day that holds an in-band decision. Returns (hist, band_day)."""
-    state, rows, band_day = core.init_state1(), [], None
+    """The port's run one day at a time through its two phases (on its batch
+    of one), with the first day that holds an in-band decision. Returns
+    (hist, band_day)."""
+    state, rows, band_day = core.init_state(), [], None
     p = core.params
     pid = torch.arange(core.pop.num_people)
+    seed, day = p.seed[:, None], None
     for d in range(days):
         ex = t_day.exposure(core.topo, core.static, core.week, p, state)
         new, stats = t_day.update(core.topo, core.static, p, state, ex)
         A = ex.A
+        day = state.day[:, None]
         if band_day is None:
             # infection: u against exp(-A) for the exposed susceptibles
-            u = t_rng.uniform(p.seed, t_rng.INFECT, state.day, pid)
-            sus = p.sus_table[state.health] > 0
+            u = t_rng.uniform(seed, t_rng.INFECT, day, pid)
+            sus = p.sus_table.gather(1, state.health.long()) > 0
             inf_band = sus & (A > 0) & ((u.double() - torch.exp(-A.double())).abs() <= BAND)
             # dwell: a fresh draw within rtol of a whole day decides, days
             # later, on which day the timed transition fires
-            mean = p.dwell_mean[new.health]
-            raw = t_rng.exponential(mean, p.seed, t_rng.DWELL, state.day, pid)
+            mean = p.dwell_mean.gather(1, new.health.long())
+            raw = t_rng.exponential(mean, seed, t_rng.DWELL, day, pid)
             whole = raw.round()
             dwell_band = ((new.health != state.health) & (mean < 1e9) & (whole >= 1)
                           & ((raw - whole).abs() <= DWELL_RTOL * whole))
@@ -153,7 +156,8 @@ def test_tti_backends_bitwise(pops):
     for backend in ("pallas-compact", "pallas"):
         core = TCore.single(tpop, t_disease.covid_model(), t_tx.TransmissionModel(tau=TAU),
                             device="cpu", backend=backend, **_tti_kw(t_iv, True))
-        runs[backend] = core.run_days(TTI_DAYS)
+        final, _, hist, _ = core.run_days(TTI_DAYS)
+        runs[backend] = final, hist
     (fa, ha), (fb, hb) = runs.values()
     assert torch.equal(ha, hb)
     for f in ("health", "dwell", "cumulative", "tested", "traced", "isolated_until"):

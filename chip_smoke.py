@@ -51,6 +51,19 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      at B = 8 and 64; the TTI ensemble (tti x 4 replicates) on both
      backends, bitwise; repro_torch.api.run at B = 1, 8 and 64 (ms per
      scenario-day), twice each; launch/sweep.py once;
+  4e. chunked runs and recovery — api.run at B = 8 checkpointed every 50
+     days into a fresh directory under build/: every history column and
+     observable bitwise equal to phase 4d's unchunked B = 8 study, 200
+     launches; a 100-day prefix resumed to 200 days, bitwise, then a second
+     resume that launches nothing; under the recovery policy, chaos events
+     raise@100, nan@150 and corrupt@150, each bitwise, with 200 launches plus
+     the replayed days and the recovery report printed; a TTI B = 1 study on
+     "pallas" (the traced padded kernel) resumed bitwise; the checkpointed
+     and unchunked studies at B = 8 and 64, twice each in alternating order
+     (ms per scenario-day), the host copy and the wait on the writer per
+     boundary, the restore, and the bytes per snapshot; at B = 64, the
+     extra time broken down (boundaries alone, + host copy, + the writer
+     thread, + the writer in the loop's thread);
   5. reference — twin-2k on the card against the plain path on the CPU, 30
      days untraced and 25 days under test-trace-isolate: the same
      trajectory up to float ulps in exp/log;
@@ -752,6 +765,22 @@ ENSEMBLE_PRESETS = ("none", "lockdown", "school-closure", "vax-seniors")
 STUDIES = ((1, ("none",), (1.0,), 1), (8, ENSEMBLE_PRESETS, (1.0,), 2),
            (64, ENSEMBLE_PRESETS, (1.0, 0.75), 8))
 TTI_REPLICATES = 4
+CKPT_EVERY = 50  # phase 4e's chunk: four boundaries in 200 days
+CKPT_ROOT = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+CHAOS = (("raise", 100), ("nan", 150), ("corrupt", 150))
+
+
+def study_spec(width: int, **kw):
+    """The md-mini study of ``width`` scenarios from STUDIES, through api.run."""
+    from repro_torch import api
+
+    _, ivs, taus, reps = next(s for s in STUDIES if s[0] == width)
+    base = dict(name=f"md-mini-B{width}", dataset=DATASET, days=DAYS, interventions=ivs,
+                tau_scales=taus, replicates=reps, backend="pallas-compact")
+    base.update(kw)
+    return api.ExperimentSpec(**base)
+
+
 # Per-scenario arguments of the wrappers (a leading B in a batched call).
 PER_SCENARIO = (0, 5, 6, 11, 12, 13)
 
@@ -865,7 +894,7 @@ def batched_kernel_phase(core, covid, kernel, ops, wrappers, card) -> dict:
     return records
 
 
-def ensemble_phase(pop, covid, epi, wrappers, card) -> dict:
+def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     """This slice's main path: md-mini scenario batches on the card.
 
     The B = 8 ensemble (ENSEMBLE_PRESETS x 2 replicates) for DAYS days on
@@ -875,7 +904,8 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> dict:
     ensemble (tti x TTI_REPLICATES) on both backends, bitwise; api.run at
     B = 1, 8 and 64 (ms per scenario-day, one launch a day for the batch,
     B = 8 equal to the ensemble); and the sweep CLI once. Returns the main
-    path's launch counts by kernel."""
+    path's launch counts by kernel and the last api.run result of each
+    study width."""
     from repro_torch import api
     from repro_torch.configs import INTERVENTION_PRESETS
     from repro_torch.configs.sweep import ScenarioBatch
@@ -951,10 +981,9 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> dict:
     log("[ensemble] TTI ensemble bitwise equal across backends")
 
     stamp("api.run studies")
-    for width, ivs, taus, reps in STUDIES + STUDIES[::-1]:
-        spec = api.ExperimentSpec(name=f"md-mini-B{width}", dataset=DATASET, days=DAYS,
-                                  interventions=ivs, tau_scales=taus, replicates=reps,
-                                  backend="pallas-compact")
+    studies = {}
+    for width, _, _, _ in STUDIES + STUDIES[::-1]:
+        spec = study_spec(width)
         torch.cuda.synchronize()
         for w in wrappers.values():
             w.launches = 0
@@ -974,6 +1003,7 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> dict:
         if not all(np.isfinite(np.asarray(band[x])).all() for x in ("mean", "lo", "hi")):
             raise AssertionError(f"api.run B={width}: mean/CI band not finite")
         prov = r.provenance
+        studies[width] = r
         log(f"[study] api.run {DATASET} B={width} ({prov['engine']}, {prov['route']}), {DAYS} "
             f"days: launches={launches['interactions_compact']} (one a day for the batch); "
             f"run_wall_s={prov['run_wall_s']} -> {1e3 * prov['run_wall_s'] / DAYS:.3f} ms/day, "
@@ -989,7 +1019,233 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> dict:
     stamp("sweep CLI")
     sweep.main(["--dataset", DATASET, "--days", "30", "--interventions", "none,lockdown",
                 "--replicates", "2"])
-    return main_launches
+    return main_launches, studies
+
+
+def same_study(a, b, what: str) -> None:
+    """Two RunResults with bitwise-equal histories and observables, or raise."""
+    for k in a.history:
+        if not np.array_equal(a.history[k], b.history[k]):
+            raise AssertionError(f"{what}: history '{k}' differs")
+    for name, obs in a.observables.items():
+        for k, v in obs.items():
+            w = b.observables[name][k]
+            if isinstance(v, dict):
+                same = all(np.array_equal(v[x], w[x], equal_nan=True) for x in v)
+            else:
+                same = np.array_equal(np.asarray(v), np.asarray(w), equal_nan=True)
+            if not same:
+                raise AssertionError(f"{what}: observable {name}.{k} differs")
+
+
+def counted_run(spec, pop, wrappers, kernel: str, days: int, what: str, **kw):
+    """api.run with every launch count set to 0 just before and read just
+    after; the run must launch ``kernel`` ``days`` times and nothing else."""
+    from repro_torch import api
+
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    r = api.run(spec, population=pop, **kw)
+    expect_launches({k: w.launches for k, w in wrappers.items()}, kernel, days, what)
+    return r
+
+
+def chunked_phase(pop, wrappers, studies, card) -> None:
+    """Phase 4e: chunked runs and recovery on md-mini (covid, 200 days),
+    each run into a fresh directory under CKPT_ROOT; every check fatal."""
+    import shutil
+
+    from repro_torch import api
+    from repro_torch.api import runner
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import ChaosEvent, ChaosSchedule
+
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    dirs = iter(range(1000))
+    fresh = lambda: os.path.join(CKPT_ROOT, f"run{next(dirs)}")
+    ck = lambda spec, d, **kw: spec.with_overrides(ckpt_dir=d, ckpt_every=CKPT_EVERY, **kw)
+    K = "interactions_compact"
+    ref8 = studies[8]
+
+    r = counted_run(ck(study_spec(8), fresh()), pop, wrappers, K, DAYS, "checkpointed B=8")
+    same_study(ref8, r, "checkpointed B=8 against the unchunked study")
+    if r.provenance["chunks"] != DAYS // CKPT_EVERY or r.provenance["chunk_days"] != CKPT_EVERY:
+        raise AssertionError(f"checkpointed B=8: provenance {r.provenance}")
+    log(f"[chunked] {DATASET} B=8 every {CKPT_EVERY} days: {r.provenance['chunks']} chunks, "
+        f"launches={DAYS}; every history column and observable bitwise equal to the "
+        f"unchunked api.run; {card}")
+
+    d = fresh()
+    counted_run(ck(study_spec(8, days=DAYS // 2), d), pop, wrappers, K, DAYS // 2, "prefix")
+    r = counted_run(ck(study_spec(8), d), pop, wrappers, K, DAYS - DAYS // 2, "resume")
+    if r.provenance["resumed_from_day"] != DAYS // 2:
+        raise AssertionError(f"resume: resumed_from_day {r.provenance['resumed_from_day']}")
+    same_study(ref8, r, "resumed B=8")
+    r2 = counted_run(ck(study_spec(8), d), pop, wrappers, K, 0, "second resume")
+    if r2.provenance["resumed_from_day"] != DAYS or r2.provenance["chunks"] != 0:
+        raise AssertionError(f"second resume: provenance {r2.provenance}")
+    same_study(ref8, r2, "second resume B=8")
+    log(f"[chunked] {DAYS // 2}-day prefix + resume from day {DAYS // 2}: launches "
+        f"{DAYS // 2} + {DAYS - DAYS // 2}, bitwise; a second resume launched nothing, "
+        "bitwise")
+
+    for kind, day in CHAOS:
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        r = api.run(ck(study_spec(8), fresh(), resilient=True), population=pop,
+                    chaos=ChaosSchedule((ChaosEvent(kind, day=day),)))
+        rep = r.provenance["resilience"]
+        replayed = CKPT_EVERY * rep["chunks_replayed"]
+        expect_launches({k: w.launches for k, w in wrappers.items()}, K, DAYS + replayed,
+                        f"chaos {kind}@{day}")
+        same_study(ref8, r, f"chaos {kind}@{day}")
+        if rep["restarts"] != 1 or (kind == "corrupt" and not rep["snapshots_quarantined"]) \
+                or (kind == "nan" and not rep["guard_violations"]):
+            raise AssertionError(f"chaos {kind}@{day}: report {rep}")
+        log(f"[chunked] chaos {kind}@{day} B=8: bitwise; launches={DAYS + replayed} "
+            f"({DAYS} + {replayed} replayed); resumed_from_day="
+            f"{r.provenance['resumed_from_day']}; report {json.dumps(rep)}")
+
+    tti = study_spec(1, name="md-mini-tti", interventions=("tti",), tau_scales=(1.0,),
+                     replicates=1, backend="pallas")
+    KT = "interactions_padded_traced"
+    ref = counted_run(tti, pop, wrappers, KT, DAYS, "TTI B=1 unchunked")
+    d = fresh()
+    counted_run(ck(tti, d, days=DAYS // 2), pop, wrappers, KT, DAYS // 2, "TTI prefix")
+    r = counted_run(ck(tti, d), pop, wrappers, KT, DAYS - DAYS // 2, "TTI resume")
+    same_study(ref, r, "TTI B=1 resumed on pallas")
+    if min(r.history[k].sum() for k in ("tests_used", "isolated", "traced")) <= 0:
+        raise AssertionError("TTI resume: tests, isolation or tracing unused")
+    log(f"[chunked] TTI B=1 on pallas ({KT}): {DAYS // 2}-day prefix + resume, bitwise "
+        "against the unchunked run")
+
+    # Timing: the host copy and the writer's wait per boundary, the restore,
+    # and the bytes per snapshot, through a manager that times its calls.
+    times = {"copy": [], "wait": [], "verify": [], "restore": []}
+
+    class TimedManager(CheckpointManager):
+        def save(self, *a, **kw):
+            self.wait()  # timed below when a write is in flight
+            t0 = time.perf_counter()
+            super().save(*a, **kw)
+            times["copy"].append(time.perf_counter() - t0)
+
+        def wait(self):
+            t0 = time.perf_counter()
+            busy = self._thread is not None
+            super().wait()
+            if busy:
+                times["wait"].append(time.perf_counter() - t0)
+
+        def latest_valid_step(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = super().latest_valid_step(*a, **kw)
+            times["verify"].append(time.perf_counter() - t0)
+            return out
+
+        def restore_flat(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = super().restore_flat(*a, **kw)
+            times["restore"].append(time.perf_counter() - t0)
+            return out
+
+    runner.CheckpointManager = TimedManager
+    try:
+        for width in (8, 64):
+            walls = {"unchunked": [], "checkpointed": []}
+            for mode in ("unchunked", "checkpointed", "checkpointed", "unchunked"):
+                for v in times.values():
+                    v.clear()
+                d = fresh()
+                spec = study_spec(width) if mode == "unchunked" else ck(study_spec(width), d)
+                r = counted_run(spec, pop, wrappers, K, DAYS, f"{mode} B={width}")
+                walls[mode].append(r.provenance["run_wall_s"])
+                if mode == "checkpointed":
+                    same_study(studies[width], r, f"checkpointed B={width}")
+                    step = os.path.join(d, f"step-{DAYS:010d}")
+                    nbytes = sum(os.path.getsize(os.path.join(step, f)) for f in os.listdir(step))
+                    copy_ms = [round(1e3 * t, 3) for t in times["copy"]]
+                    wait_ms = round(1e3 * sum(times["wait"]), 3)
+                    for v in times.values():
+                        v.clear()
+                    t0 = time.perf_counter()
+                    r2 = counted_run(spec, pop, wrappers, K, 0, f"no-op resume B={width}")
+                    log(f"[chunked] B={width} checkpointed: host copy per boundary ms "
+                        f"{copy_ms}; wait on the writer {wait_ms} ms over the run "
+                        f"({round(wait_ms / (DAYS // CKPT_EVERY), 3)} per boundary); "
+                        f"bytes per snapshot {nbytes}; restore: verify "
+                        f"{round(1e3 * sum(times['verify']), 3)} ms + restore_flat "
+                        f"{round(1e3 * sum(times['restore']), 3)} ms, a no-op resume's "
+                        f"run_wall_s {r2.provenance['run_wall_s']} (api.run wall "
+                        f"{time.perf_counter() - t0:.3f} s); {card}")
+            log(f"[chunked] B={width} ms per scenario-day, unchunked "
+                f"{[round(1e3 * w / (DAYS * width), 4) for w in walls['unchunked']]} vs "
+                f"checkpointed every {CKPT_EVERY} "
+                f"{[round(1e3 * w / (DAYS * width), 4) for w in walls['checkpointed']]} "
+                f"(order: unchunked, checkpointed, checkpointed, unchunked; run_wall_s "
+                f"{walls}); {card}")
+    finally:
+        runner.CheckpointManager = CheckpointManager
+    checkpoint_breakdown(pop, 64, fresh, card)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+def checkpoint_breakdown(pop, width: int, fresh, card) -> None:
+    """Where a checkpointed study's extra time goes: the study at ``width``
+    through ``run_chunked`` on one core, five ways, in turns (the order,
+    then the reverse): one chunk; four chunks with a save that does
+    nothing (the boundaries alone); with a save that only copies the state
+    to the host; with the manager's background writer; with the writer run
+    in the loop's thread (``blocking``, so its whole cost is serial)."""
+    from repro_torch.api import observables as obs_lib
+    from repro_torch.checkpoint import CheckpointManager, flatten_tree
+    from repro_torch.engine import core as engine_lib
+
+    spec = study_spec(width)
+    core = engine_lib.EngineCore(pop, spec.build_batch(), block_size=BLOCK, device="cuda")
+    observables = obs_lib.make_observables(spec.observables)
+    ctx = obs_lib.ObsContext(num_people=pop.num_people, num_scenarios=width,
+                             device=str(core.device))
+
+    class NoSave:
+        def save(self, *a, **kw):
+            pass
+
+        def wait(self):
+            pass
+
+    class CopyOnly(NoSave):
+        def save(self, step, tree, **kw):
+            for v in flatten_tree(tree).values():
+                if isinstance(v, torch.Tensor):
+                    v.to("cpu", copy=True)
+
+    saves = []
+
+    class Blocking(CheckpointManager):
+        def save(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().save(*a, **kw, blocking=True)
+            saves.append(time.perf_counter() - t0)
+
+    modes = {"one chunk": lambda: None, "4 chunks, no save": NoSave,
+             "4 chunks, host copy": CopyOnly,
+             "4 chunks, writer thread": lambda: CheckpointManager(fresh()),
+             "4 chunks, blocking writer": lambda: Blocking(fresh())}
+    walls = {m: [] for m in modes}
+    for m in list(modes) + list(modes)[::-1]:
+        mgr = modes[m]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine_lib.run_chunked(engine_lib.CoreDriver(core, observables), DAYS, observables,
+                               ctx, manager=mgr, every=CKPT_EVERY, resume=False)
+        torch.cuda.synchronize()
+        walls[m].append(round(time.perf_counter() - t0, 4))
+    log(f"[chunked] B={width} breakdown, run_chunked wall s (two turns each, "
+        f"order then reverse): {json.dumps(walls)}; blocking save (copy + digests + "
+        f"np.save) per boundary ms {[round(1e3 * t, 3) for t in saves]}; {card}")
 
 
 def interactions_only(src: str) -> int:
@@ -1174,7 +1430,11 @@ def main() -> int:
 
     # ---- phase 4d: scenario batches, this slice's main path -----------------
     stamp("ensembles")
-    main_launches = ensemble_phase(pop, covid, epi, wrappers, card)
+    main_launches, studies = ensemble_phase(pop, covid, epi, wrappers, card)
+
+    # ---- phase 4e: chunked runs and recovery ------------------------------
+    stamp("chunked runs")
+    chunked_phase(pop, wrappers, studies, card)
 
     # ---- phase 5: reference on a small input ------------------------------
     stamp("reference")

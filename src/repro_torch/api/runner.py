@@ -22,9 +22,16 @@ runs the scenarios one after another and replays the observables after the
 run (bitwise equal inside the port). Histories are day-major with a
 scenario axis: every array is ``(days, B)``, B = 1 included.
 
-The run is one chunk: checkpoints (``checkpoint.directory``), the resilient
-loop (``resilience.enabled``) and fault injection (``chaos=``) are ROADMAP
-queue 1 item 3 and raise.
+With ``checkpoint.directory`` the run goes in ``checkpoint.every``-day
+chunks with a snapshot at each boundary, and resumes bitwise from the
+newest valid one (:func:`repro_torch.engine.core.run_chunked`). Resume keys
+carry the engine generation, the package and the device type: a checkpoint
+written by the reference package (or on another device) is refused, not
+spliced, since those trajectories are not bitwise equal to this run's. With
+``resilience.enabled`` or ``chaos=`` the chunk loop runs under the recovery
+policy of :mod:`repro_torch.runtime.resilience`; the result is bitwise the
+uninterrupted run's, and ``provenance["resilience"]`` says what recovery
+did.
 """
 
 from __future__ import annotations
@@ -37,10 +44,33 @@ from repro_torch.analysis.report import summarize_sweep
 from repro_torch.api import observables as obs_lib
 from repro_torch.api.result import RunResult
 from repro_torch.api.spec import ROUTES, ExperimentSpec
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_epidemic
 from repro_torch.engine import core as engine_lib
+from repro_torch.runtime import resilience as resilience_lib
 
 _UNPORTED_ENGINES = ("dist", "sharded", "hybrid")
+
+
+def _resume_key(spec: ExperimentSpec, engine: str, device) -> dict:
+    """What must match for a checkpoint to be resumable under this spec:
+    everything that shapes the state or the science — but not the run
+    length (extending a run is the resume use case), the checkpoint and
+    recovery policies, the study's display name or the observables (pure
+    reductions replayed from the restored history). ``core`` marks the
+    engine generation (the reference's marker); ``package`` and ``device``
+    tell this port on this device type from the reference package and
+    from another device: their trajectories differ in float ulps (``exp``,
+    ``log``), so a snapshot from one must not continue in another."""
+    d = spec.to_dict()
+    for k in ("days", "checkpoint", "name", "engine", "observables",
+              "resilience"):
+        d.pop(k, None)
+    d["engine_resolved"] = engine
+    d["core"] = engine_lib.CORE_VERSION
+    d["package"] = "repro_torch"
+    d["device"] = device.type
+    return d
 
 
 def _resolve_engine(spec: ExperimentSpec, B: int) -> str:
@@ -54,21 +84,13 @@ def _resolve_engine(spec: ExperimentSpec, B: int) -> str:
     return "single"
 
 
-def _check_ported(spec: ExperimentSpec, engine: str, chaos) -> None:
-    """Raise, naming the ROADMAP item, for what the port does not run yet."""
+def _check_ported(engine: str) -> None:
+    """Raise, naming the ROADMAP item, for an engine the port does not run yet."""
     if engine in _UNPORTED_ENGINES:
         raise NotImplementedError(
             f"engine '{engine}' is not ported: the port runs 'single' and "
             "'ensemble' on one device; meshes are ROADMAP queue 1 item 4 "
             "(multiple GPUs)")
-    if spec.checkpoint.directory is not None:
-        raise NotImplementedError(
-            "checkpoint.directory is not ported: checkpointed, chunked runs "
-            "are ROADMAP queue 1 item 3 (chunked runs and resilience)")
-    if spec.resilience.enabled or chaos is not None:
-        raise NotImplementedError(
-            "the resilient run loop (resilience.enabled, chaos=) is not "
-            "ported: ROADMAP queue 1 item 3 (chunked runs and resilience)")
 
 
 def _sweep_axes(spec: ExperimentSpec, B: int) -> tuple:
@@ -92,35 +114,83 @@ def _sweep_axes(spec: ExperimentSpec, B: int) -> tuple:
     return tuple(axes)
 
 
-def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None) -> RunResult:
+def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
+        on_straggler=None) -> RunResult:
     """Execute an :class:`ExperimentSpec` end to end on ``device`` (the card
     unless ``device="cpu"`` is asked for; without a card, an error).
     ``population=`` substitutes a prebuilt Population for ``spec.dataset``
-    (tests reuse one build). ``chaos=`` is the reference's fault-injection
-    hook, ROADMAP queue 1 item 3: it raises."""
+    (tests reuse one build).
+
+    ``chaos=`` injects a deterministic fault schedule
+    (:class:`repro_torch.runtime.chaos.ChaosSchedule`) into the chunk loop
+    and implies the resilient path; ``on_straggler(day, dt, median)``
+    observes straggler detections."""
     spec = spec.validate()
     t0 = time.time()
     device = engine_lib.resolve_device(device)
     B = spec.num_scenarios
     engine = _resolve_engine(spec, B)
-    _check_ported(spec, engine, chaos)
+    _check_ported(engine)
     pop = population if population is not None else get_epidemic(spec.dataset).build()
     batch = spec.build_batch()
     observables = obs_lib.make_observables(spec.observables)
     ctx = obs_lib.ObsContext(num_people=pop.num_people, num_scenarios=B,
                              sweep_axes=_sweep_axes(spec, B), device=str(device))
-    core = engine_lib.EngineCore(pop, batch, block_size=spec.block_size,
-                                 device=device, backend=ROUTES[spec.backend])
     # A pinned single engine with B > 1 runs the scenarios one at a time;
     # cross-scenario reductions then replay after the run.
     in_scan = not (engine == "single" and B > 1)
-    driver = (engine_lib.CoreDriver(core, observables) if in_scan
-              else engine_lib.SequentialDriver(core))
+    built = {}  # the most recently built core (provenance below)
+
+    def build_driver():
+        core = engine_lib.EngineCore(pop, batch, block_size=spec.block_size,
+                                     device=device, backend=ROUTES[spec.backend])
+        built["core"] = core
+        if in_scan:
+            return engine_lib.CoreDriver(core, observables)
+        return engine_lib.SequentialDriver(core)
+
+    # The first driver is built before the run's clock starts, so run_wall_s
+    # times the day loop, not the core's host build.
+    first = [build_driver()]
+
+    def make_driver(workers=None):
+        """The chunk driver: the one built above, then a rebuild on each
+        call — the rebuild seam of the recovery policy. The port runs one
+        worker, so ``workers`` is always 1 here: run_resilient asks for
+        fewer only after a device loss, which it re-raises on one worker
+        (elastic shrink waits for meshes, ROADMAP queue 1 item 4)."""
+        return first.pop() if first else build_driver()
+
+    ck = spec.checkpoint
+    mgr = CheckpointManager(ck.directory, keep=ck.keep) if ck.directory else None
+    rs = spec.resilience
+    report = None
 
     t_run = time.time()
-    state, hist, carries, dailies, resumed_from, num_chunks = engine_lib.run_chunked(
-        driver, spec.days, observables, ctx)
+    if rs.enabled or chaos is not None:  # run_resilient refuses mgr=None
+        policy = resilience_lib.ResiliencePolicy(
+            max_restarts=rs.max_restarts, backoff_s=rs.backoff_s,
+            guards=rs.guards, elastic=rs.elastic,
+            straggler_window=rs.straggler_window,
+            straggler_factor=rs.straggler_factor,
+            repartition_on_straggler=rs.repartition_on_straggler,
+        )
+        state, hist, carries, dailies, resumed_from, num_chunks, report = \
+            resilience_lib.run_resilient(
+                make_driver, spec.days, observables, ctx,
+                manager=mgr, every=ck.every, resume=ck.resume,
+                resume_key=_resume_key(spec, engine, device),
+                policy=policy, chaos=chaos, on_straggler=on_straggler,
+            )
+    else:
+        state, hist, carries, dailies, resumed_from, num_chunks = \
+            engine_lib.run_chunked(
+                make_driver(None), spec.days, observables, ctx,
+                manager=mgr, every=ck.every, resume=ck.resume,
+                resume_key=_resume_key(spec, engine, device),
+            )
     run_wall = time.time() - t_run
+    core = built["core"]
 
     if in_scan:
         obs = obs_lib.finalize_all(observables, carries, dailies, ctx)
@@ -143,11 +213,15 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None) -> 
         "wall_s": round(time.time() - t0, 3),  # end to end, incl. pop build
         "run_wall_s": round(run_wall, 3),  # the day loop only
         "chunks": num_chunks,
-        "chunk_days": spec.days,
+        "chunk_days": ck.every if mgr is not None else spec.days,
         "resumed_from_day": resumed_from,
         "observables_in_scan": in_scan,
         "core": engine_lib.CORE_VERSION,
     }
+    if report is not None:
+        # what recovery did: restarts, chunks replayed, snapshots
+        # quarantined, straggler/device-loss events, final layout
+        provenance["resilience"] = report.to_dict()
     if "teps" in obs:
         provenance["edges_total"] = float(obs["teps"]["edges_total"])
         provenance["teps"] = float(obs["teps"]["edges_total"]) / max(run_wall, 1e-9)

@@ -56,8 +56,7 @@ class CheckpointSpec:
     scans ``every``-day chunks and snapshots state + history-so-far at
     each chunk boundary through CheckpointManager (observable carries are
     replayed from the history on resume — they are pure reductions).
-    ``directory=None`` disables checkpointing (one unchunked run), the only
-    policy the port runs; checkpoints are ROADMAP queue 1 item 3."""
+    ``directory=None`` disables checkpointing (one unchunked run)."""
 
     directory: Optional[str] = None
     every: int = 50
@@ -67,16 +66,17 @@ class CheckpointSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ResilienceSpec:
-    """Recovery policy for the day-chunked run loop (the reference's
-    ``repro.runtime.resilience``; in the port, ROADMAP queue 1 item 3, so
-    ``enabled`` is refused by the runner). With ``enabled`` the chunk loop runs
-    under failure→restore→replay recovery (needs ``checkpoint.directory``):
-    capped, backed-off restarts from the newest *valid* snapshot (corrupt
-    ones are quarantined), a post-chunk invariant pack treated as a fault
-    on violation, per-chunk straggler detection, and elastic shrink onto
-    fewer workers on device loss. Pure policy — it never changes the
-    science, so it is not part of the checkpoint resume key and recovered
-    runs are bitwise-equal to uninterrupted ones."""
+    """Recovery policy for the day-chunked run loop
+    (:mod:`repro_torch.runtime.resilience`). With ``enabled`` the chunk loop
+    runs under failure→restore→replay recovery (needs
+    ``checkpoint.directory``): capped, backed-off restarts from the newest
+    *valid* snapshot (corrupt ones are quarantined), a post-chunk invariant
+    pack treated as a fault on violation, per-chunk straggler detection,
+    and elastic shrink onto fewer workers on device loss (the port runs one
+    worker, so a device loss re-raises; meshes are ROADMAP queue 1 item 4).
+    Pure policy — it never changes the science, so it is not part of the
+    checkpoint resume key and recovered runs are bitwise-equal to
+    uninterrupted ones."""
 
     enabled: bool = False
     max_restarts: int = 3

@@ -10,11 +10,14 @@ everything around it, as the reference's ``repro.engine.core`` does:
     every op of the day over ``(B, ...)`` and one interaction-kernel launch
     a day. The reference's mesh layouts (``workers``, ``scenarios``,
     ``hybrid``) are ROADMAP queue 1 item 4;
-  * **running** — :func:`run_chunked` drives a run through a
+  * **chunking** — :func:`run_chunked` drives a run through a
     :class:`CoreDriver` (the batch in one loop, observables inside it) or a
     :class:`SequentialDriver` (one scenario at a time, observables replayed
-    after the run), in one chunk: checkpointed chunks are ROADMAP queue 1
-    item 3.
+    after the run): one chunk, or with a checkpoint manager ``every``-day
+    chunks with a snapshot at each boundary and a bitwise resume from the
+    newest valid one. Snapshots are taken and restored at chunk boundaries
+    only, so they synchronise with the card there and never inside the day
+    loop.
 
 Scenario padding is *inert*: :func:`pad_batch` fills a batch with copies of
 its last scenario, and :func:`no_op_params` gives them zero betas, zero
@@ -31,11 +34,13 @@ default) or ``"pallas"``; both give bitwise-equal runs.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointCorruptionError
 from repro_torch.configs.sweep import Scenario, ScenarioBatch
 from repro_torch.core import interactions as inter_lib
 from repro_torch.core import population as pop_lib
@@ -48,8 +53,54 @@ from repro_torch.kernels.interactions import ops as iops
 LAYOUTS = ("local",)
 
 #: Engine-core generation marker (the reference's, for the same history
-#: keys and state fields): part of every resume key once checkpoints land.
+#: keys and state fields): part of every resume key, beside the package's
+#: name (``api/runner.py:_resume_key``), since the two packages' trajectories
+#: are not bitwise equal.
 CORE_VERSION = "engine-v3"
+
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(sim_lib.SimState))
+
+#: SimState fields with a person axis (last) — the leaves an elastic
+#: repartition must re-pad when the worker count changes.
+PERSON_STATE_FIELDS = ("health", "dwell", "vaccinated", "tested", "traced",
+                       "isolated_until")
+
+
+class ResumeKeyError(ValueError):
+    """A checkpoint exists but must not be resumed from under this spec
+    (incompatible science, engine generation or package, or beyond the run
+    length). A config error, not a fault — the resilient loop never retries
+    it."""
+
+
+def state_to_tree(state: sim_lib.SimState) -> dict:
+    """SimState -> plain dict (stable checkpoint key paths)."""
+    return {f: getattr(state, f) for f in _STATE_FIELDS}
+
+
+def state_from_flat(flat: dict, template: sim_lib.SimState) -> sim_lib.SimState:
+    """The ``state/<field>`` leaves of a checkpoint as a SimState on
+    ``template``'s device (an ``EngineCore.init_state()``). Every leaf must
+    have the template's dtype and shape — except that a person axis may be
+    longer (padded for more workers; ``EngineCore.adopt_state`` re-pads it)
+    — or :class:`CheckpointCorruptionError` is raised: nothing is cast."""
+    out = {}
+    for f in _STATE_FIELDS:
+        key, like = f"state/{f}", getattr(template, f)
+        if key not in flat:
+            raise CheckpointCorruptionError(f"leaf '{key}' is not in the checkpoint")
+        t = torch.as_tensor(flat[key])
+        if t.dtype != like.dtype:
+            raise CheckpointCorruptionError(
+                f"leaf '{key}' has dtype {t.dtype}, the engine's state has {like.dtype}")
+        person = f in PERSON_STATE_FIELDS and t.dim() == like.dim() >= 1
+        if not (t.shape == like.shape or person and t.shape[:-1] == like.shape[:-1]
+                and t.shape[-1] >= like.shape[-1]):
+            raise CheckpointCorruptionError(
+                f"leaf '{key}' has shape {tuple(t.shape)}, the engine's state has "
+                f"{tuple(like.shape)}")
+        out[f] = t.to(like.device)
+    return sim_lib.SimState(**out)
 
 
 def resolve_device(device) -> torch.device:
@@ -205,6 +256,7 @@ class EngineCore:
         self.batch = as_batch(batch)
         self.num_real = len(self.batch)
         self.layout = layout
+        self.workers = 1  # the person axis is one worker's (meshes: item 4)
         self.block_size = block_size
         self.iv_slots, self.pa_slots, params_list = build_batch_params(
             pop, self.batch, device=self.device)
@@ -262,6 +314,43 @@ class EngineCore:
     def scenario_params(self, i: int) -> sim_lib.SimParams:
         """Scenario ``i``'s un-stacked params."""
         return index_params(self.params, i)
+
+    def adopt_state(self, state: sim_lib.SimState) -> sim_lib.SimState:
+        """Re-home a stacked SimState (possibly from another worker layout)
+        onto this core's person axis — the elastic-degradation seam. A
+        state already in this layout passes through untouched; person
+        leaves padded for W workers are repartitioned with
+        :func:`repro_torch.runtime.elastic.repartition_person_array` (real
+        people occupy the first ``num_people`` flat slots in every layout),
+        pad entries filled from :meth:`init_state`'s last person."""
+        from repro_torch.runtime.elastic import (
+            plan_elastic_rescale, repartition_person_array,
+        )
+
+        tmpl = self.init_state()
+        P = self.pop.num_people
+        new_layout = plan_elastic_rescale(P, self.workers, self.workers)[1]
+        ppad_new = new_layout["workers"] * new_layout["per_worker"]
+
+        def adopt(name):
+            old, t = getattr(state, name), getattr(tmpl, name)
+            if name not in PERSON_STATE_FIELDS or old.shape == t.shape:
+                return old
+            if old.dim() < 2 or old.shape[0] != t.shape[0]:
+                raise ValueError(
+                    f"adopt_state: cannot re-home leaf '{name}' of shape "
+                    f"{tuple(old.shape)} onto batch template {tuple(t.shape)}")
+            old_h, t_h = old.cpu().numpy(), t.cpu().numpy()
+            new = np.stack([
+                repartition_person_array(old_h[i], P, self.workers,
+                                         fill=t_h[i, -1] if ppad_new > P else 0).reshape(-1)
+                for i in range(old_h.shape[0])])
+            if new.shape != t_h.shape:
+                raise ValueError(f"adopt_state: '{name}' re-homed to {new.shape}, "
+                                 f"expected {t_h.shape}")
+            return torch.as_tensor(new, device=self.device)
+
+        return sim_lib.SimState(**{f: adopt(f) for f in _STATE_FIELDS})
 
     def run_days(
         self,
@@ -323,7 +412,7 @@ def hist_to_numpy(hist: torch.Tensor) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the run loop (one chunk) and its drivers
+# the day-chunked checkpoint/resume loop and its drivers
 # ---------------------------------------------------------------------------
 
 
@@ -342,28 +431,125 @@ def concat_dailies(chunks: list):
     return np.concatenate(chunks, axis=0)
 
 
-def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None):
-    """Run ``days`` days through ``driver`` and return ``(state, hist,
-    carries, dailies, resumed_from, num_chunks)``, the reference's
-    ``repro.engine.core.run_chunked`` tuple.
+def _hist_from_flat(flat: dict, step: int) -> dict:
+    """The ``hist/<stat>`` leaves of a checkpoint at ``step``: int64
+    ``(step, B)`` arrays, as the chunks return them, or a corruption error."""
+    hist = {}
+    for k in day_lib.STAT_KEYS:
+        v = flat.get(f"hist/{k}")
+        if v is None or v.dtype != np.int64 or v.ndim != 2 or v.shape[0] != step:
+            raise CheckpointCorruptionError(
+                f"step {step}: history leaf 'hist/{k}' is "
+                + ("missing" if v is None else f"{v.dtype} {v.shape}")
+                + f", expected int64 ({step}, B)")
+        hist[k] = v
+    return hist
+
+
+def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
+                every: int = 50, resume: bool = True,
+                resume_key: Optional[dict] = None, hooks=None):
+    """Run ``days`` days through ``driver`` in ``every``-day chunks,
+    checkpointing state + history-so-far at each boundary and resuming
+    bitwise from the newest compatible checkpoint (the reference's
+    ``repro.engine.core.run_chunked``). Without a ``manager`` the run is
+    one chunk.
 
     ``driver`` has ``init_state()``, ``run_chunk(n, state, carries) ->
-    (state, hist, carries, dailies)`` and an ``in_scan`` flag (False for
-    the sequential driver, whose observables replay after the run). The run
-    is one chunk: a checkpoint ``manager`` (day-chunked checkpoints and
-    resume) is ROADMAP queue 1 item 3 and raises."""
+    (state, hist, carries, dailies)``, ``adapt_state(state)`` and an
+    ``in_scan`` flag (False for the sequential driver, whose observables
+    replay after the run). Observable carries are never checkpointed: on
+    resume the pure updates replay over the restored history, which gives
+    the carries bitwise (``api/observables.py:scan_history``).
+
+    Resume picks the newest snapshot that passes integrity verification
+    (corrupt ones are quarantined by the manager); its resume key must
+    equal ``resume_key`` and its day must not pass ``days``, or
+    :class:`ResumeKeyError` is raised. The restored state has the dtype and
+    shape of ``driver.init_state()`` (:func:`state_from_flat`) and passes
+    through ``driver.adapt_state``.
+
+    ``hooks`` (see :mod:`repro_torch.runtime.resilience`) observes the loop
+    at chunk granularity: ``on_start(state, day)``, ``before_chunk(day,
+    n)``, ``after_chunk(end_day, state, dt) -> state`` (called *before*
+    the boundary snapshot, so invariant guards can veto a poisoned state
+    reaching disk; ``dt`` ends with the chunk's history copy to the host,
+    so it times the device's work), ``after_save(day)``. Hook exceptions
+    propagate — they are the fault-injection and guard-violation surface.
+
+    Returns ``(state, hist, carries, dailies, resumed_from, num_chunks)``.
+    """
     from repro_torch.api import observables as obs_lib  # cycle-free at call time
 
+    state, carries, hists, daily_chunks = None, None, [], []
+    day, resumed_from = 0, None
+    step = manager.latest_valid_step() if manager is not None and resume else None
+    if step is not None:
+        if step > days:
+            raise ResumeKeyError(
+                f"checkpoint at day {step} is beyond spec.days={days}")
+        saved_key = manager.manifest(step).get("extra", {}).get("resume_key")
+        if saved_key != resume_key:
+            raise ResumeKeyError(
+                f"checkpoint at day {step} in {manager.directory} was "
+                + ("written by an incompatible spec or engine generation "
+                   "(different parameters, sweep axes, mesh, package or "
+                   "device, or another engine)" if saved_key is not None
+                   else "not written by api.run (no resume_key in its "
+                        "manifest)")
+                + "; refusing to splice trajectories — point "
+                "checkpoint.directory elsewhere or set "
+                "checkpoint.resume=false")
+        flat = manager.restore_flat(step)
+        state = driver.adapt_state(state_from_flat(flat, driver.init_state()))
+        hists = [_hist_from_flat(flat, step)]
+        if driver.in_scan:
+            # Replay the pure reductions over the restored history so the
+            # carries continue exactly where the interrupted loop left off.
+            carries, pre = obs_lib.scan_history(observables, hists[0], ctx)
+            daily_chunks = [pre] if pre is not None else []
+        day, resumed_from = step, step
+    if state is None:
+        state = driver.init_state()
+    if carries is None and driver.in_scan:
+        carries = obs_lib.init_carries(observables, ctx)
+    if hooks is not None:
+        hooks.on_start(state, day)
+
+    chunk = every if manager is not None else days
+    num_chunks = 0
+    while day < days:
+        n = min(chunk, days - day)
+        t0 = time.perf_counter()
+        if hooks is not None:
+            hooks.before_chunk(day, n)
+        state, hist, carries, dl = driver.run_chunk(n, state, carries)
+        if hooks is not None:
+            # May raise (guard veto of a poisoned state) — nothing below
+            # runs, so the poison is never appended or checkpointed.
+            state = hooks.after_chunk(day + n, state, time.perf_counter() - t0)
+        hists.append(hist)
+        if dl is not None:
+            daily_chunks.append(dl)
+        day += n
+        num_chunks += 1
+        if manager is not None:
+            # Each boundary rewrites the full history-so-far (a few int64s
+            # per scenario-day) beside the state, so the newest snapshot
+            # alone restores the run. save() copies to the host here.
+            manager.save(day, {
+                "day": np.asarray(day, np.int32),
+                "state": state_to_tree(state),
+                "hist": concat_hists(hists),
+            }, extra={"resume_key": resume_key})
+            if hooks is not None:
+                hooks.after_save(day)
     if manager is not None:
-        raise NotImplementedError(
-            "checkpointed, chunked runs are not ported: ROADMAP queue 1 item 3 "
-            "(chunked runs and resilience)")
-    state = driver.init_state()
-    carries = obs_lib.init_carries(observables, ctx) if driver.in_scan else None
-    state, hist, carries, dailies = driver.run_chunk(days, state, carries)
-    hist = concat_hists([hist])
-    dailies = concat_dailies([dailies]) if dailies is not None else None
-    return state, hist, carries, dailies, None, 1
+        manager.wait()
+
+    hist = concat_hists(hists)
+    dailies = concat_dailies(daily_chunks) if daily_chunks else None
+    return state, hist, carries, dailies, resumed_from, num_chunks
 
 
 class CoreDriver:
@@ -379,11 +565,16 @@ class CoreDriver:
     def init_state(self):
         return self.core.init_state()
 
+    def adapt_state(self, state):
+        return self.core.adopt_state(state)
+
     def run_chunk(self, n, state, carries):
         from repro_torch.api import observables as obs_lib  # cycle-free at call time
 
         state, carries, hist, dailies = self.core.run_days(
             n, state=state, observables=self.observables, carries=carries)
+        # The history's host copy ends the chunk: a chunk's wall time
+        # (run_chunked's dt) includes the device's work.
         return (state, hist_to_numpy(hist), carries,
                 obs_lib.observables_to_numpy(dailies))
 
@@ -405,6 +596,9 @@ class SequentialDriver:
     def init_state(self):
         return self.core.init_state()
 
+    def adapt_state(self, state):
+        return self.core.adopt_state(state)
+
     def run_chunk(self, n, state, carries):
         finals, hists = [], []
         for i, params_i in enumerate(self.params_list):
@@ -412,5 +606,8 @@ class SequentialDriver:
             f, _, h, _ = self.core.run_days(n, params=params_i, state=state_i)
             finals.append(f)
             hists.append(h)
+        # pad slots (if any) never run here; they keep their rows
+        finals.append(index_params(state, slice(len(self.params_list), None)))
         state = tree_map(lambda *xs: torch.cat(xs), *finals)
+        # as CoreDriver's: the host copy ends the chunk
         return state, hist_to_numpy(torch.cat(hists, dim=-1)), carries, None

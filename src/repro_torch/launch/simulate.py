@@ -6,12 +6,17 @@
     PYTHONPATH=src python -m repro_torch.launch.simulate --dataset md-mini \
         --days 200 --interventions tti --backend pallas
     PYTHONPATH=src python -m repro_torch.launch.simulate --spec examples/experiment.toml
+    PYTHONPATH=src python -m repro_torch.launch.simulate --dataset twin-2k \
+        --days 60 --ckpt-dir build/ckpt --ckpt-every 20 --resilient --device cpu
 
 The flags build (or, with ``--spec``, override) a declarative
 :class:`~repro_torch.api.ExperimentSpec`, as the reference's
 ``repro.launch.simulate`` does, and run it on ``--device`` (the card unless
 ``--device cpu``). It prints one summary row per scenario, with the
-reference's fields.
+reference's fields. With ``--ckpt-dir`` the run is checkpointed every
+``--ckpt-every`` days and resumes from the newest valid snapshot there
+(the last line's ``resumed_from_day``); ``--resilient`` adds the recovery
+policy and prints what it did.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ def main(argv=None):
         print(json.dumps(row), flush=True)
     print(json.dumps({k: prov[k] for k in ("engine", "wall_s", "run_wall_s", "chunks",
                                            "resumed_from_day")}))
+    if "resilience" in prov:
+        print(json.dumps({"resilience": prov["resilience"]}))
     if args.out:
         result.save(args.out)
 

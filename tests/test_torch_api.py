@@ -29,6 +29,7 @@ from repro_torch.configs import get_epidemic
 from repro_torch.core import simulator
 from repro_torch.engine.core import EngineCore
 from repro_torch.launch import sweep
+from repro_torch.runtime import ChaosSchedule
 
 from test_torch_slice import _stepped
 
@@ -209,16 +210,26 @@ def test_sobol_first_order_matches_numpy(pop):
         np.testing.assert_allclose(got["S1"][axis], s1_ref, rtol=1e-4, err_msg=axis)
 
 
-def test_unported_engines_and_policies_raise(pop):
+def test_unported_engines_and_policies_raise(pop, tmp_path):
+    """The meshes raise, naming their ROADMAP item; checkpoints, the
+    resilient loop and chaos= (queue 1 item 3) run, equal to the plain run."""
     two = _spec(t_api, replicates=2)
-    for kw, item in ((dict(engine="dist"), "item 4"), (dict(engine="hybrid"), "item 4"),
-                     (dict(scenarios=2), "item 4"), (dict(workers=2), "item 4"),
-                     (dict(ckpt_dir="/tmp/never"), "item 3"),
-                     (dict(ckpt_dir="/tmp/never", resilient=True), "item 3")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+    for kw in (dict(engine="dist"), dict(engine="hybrid"), dict(scenarios=2),
+               dict(workers=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
             t_api.run(two.with_overrides(**kw), population=pop, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        t_api.run(two, population=pop, device="cpu", chaos=object())
+    plain = t_api.run(two, population=pop, device="cpu")
+    for i, (kw, chaos) in enumerate(((dict(ckpt_every=3), None),
+                                     (dict(ckpt_every=3, resilient=True), None),
+                                     (dict(), ChaosSchedule(())))):
+        r = t_api.run(two.with_overrides(ckpt_dir=str(tmp_path / str(i)), **kw),
+                      population=pop, device="cpu", chaos=chaos)
+        assert r.provenance["chunk_days"] == kw.get("ckpt_every", 50)
+        assert ("resilience" in r.provenance) == (i > 0)
+        for k in plain.history:
+            np.testing.assert_array_equal(r.history[k], plain.history[k], err_msg=k)
+    with pytest.raises(ValueError, match="resilient"):
+        t_api.run(two, population=pop, device="cpu", chaos=ChaosSchedule(()))
     if not torch.cuda.is_available():  # the card by default, never a silent CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_api.run(two, population=pop)

@@ -2,7 +2,9 @@
 their plain versions and each other, one scenario or a batch in one launch,
 the launch counters, the wrappers' input checks, and the main path, the TTI
 path and a scenario ensemble launching their kernel once a day without a
-host sync; the flash-attention kernel against its
+host sync; checkpointed studies resumed and recovered bitwise, launches
+counting the replayed days, and the invariant guards on a card state equal
+to those on its CPU copy; the flash-attention kernel against its
 plain version, its wrapper's checks, and a prefill launching it once per
 layer.
 
@@ -524,3 +526,89 @@ def test_prefill_launches_flash_once_per_layer(cuda):
     assert f_kernel.flash_attention_bhsd_cuda.launches == cfg.num_layers
     assert cache["k"].is_cuda
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
+
+
+# Checkpointed and resilient studies on the card (twin-2k): a resume and a
+# recovery are bitwise the uninterrupted card run, and the interaction kernel
+# launches once a day, replayed days included.
+
+
+def _study(B, days=20):
+    from repro_torch import api
+
+    return api.ExperimentSpec(dataset="twin-2k", days=days, tau=2e-5,
+                              interventions=("none", "lockdown")[:min(B, 2)],
+                              replicates=max(B // 2, 1))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def _same_study(a, b):
+    for k in a.history:
+        assert np.array_equal(a.history[k], b.history[k]), k
+    for name in a.observables:
+        got, want = _leaves(b.observables[name]), _leaves(a.observables[name])
+        assert len(got) == len(want) > 0, name
+        for x, y in zip(want, got):
+            assert x.dtype == y.dtype and np.array_equal(x, y, equal_nan=True), name
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_resume_on_the_card_is_bitwise(cuda, tmp_path, B):
+    from repro_torch import api
+
+    pop = get_epidemic("twin-2k").build()
+    ref = api.run(_study(B), population=pop)
+    t_kernel.interactions_compact_cuda.launches = 0
+    api.run(_study(B, days=8).with_overrides(ckpt_dir=str(tmp_path), ckpt_every=4),
+            population=pop)
+    res = api.run(_study(B).with_overrides(ckpt_dir=str(tmp_path), ckpt_every=4),
+                  population=pop)
+    assert t_kernel.interactions_compact_cuda.launches == 20  # 8 + 12, nothing twice
+    assert res.provenance["resumed_from_day"] == 8 and res.num_scenarios == B
+    _same_study(ref, res)
+
+
+@pytest.mark.parametrize("kind", ["nan", "corrupt"])
+def test_recovery_on_the_card_is_bitwise(cuda, tmp_path, kind):
+    from repro_torch import api
+    from repro_torch.runtime import ChaosEvent, ChaosSchedule
+
+    pop = get_epidemic("twin-2k").build()
+    ref = api.run(_study(4), population=pop)
+    t_kernel.interactions_compact_cuda.launches = 0
+    res = api.run(_study(4).with_overrides(ckpt_dir=str(tmp_path), ckpt_every=4,
+                                           resilient=True),
+                  population=pop, chaos=ChaosSchedule((ChaosEvent(kind, day=12),)))
+    rep = res.provenance["resilience"]
+    assert rep["restarts"] == 1 and rep["chunks_replayed"] == 1
+    # the replayed days launch again: 20 days + one 4-day chunk
+    assert t_kernel.interactions_compact_cuda.launches == 20 + 4 * rep["chunks_replayed"]
+    assert res.provenance["resumed_from_day"] == 8
+    _same_study(ref, res)
+
+
+def test_guards_on_a_card_state_equal_its_cpu_copy(cuda):
+    from repro_torch.runtime.guards import check_state
+
+    pop = get_epidemic("twin-2k").build()
+    core = EngineCore(pop, _study(4).build_batch(), device=cuda)
+    st = core.run_days(10)[0]
+    n = int(core.params.sus_table.shape[-1])
+    prev = {k: getattr(st, k).clone() for k in ("cumulative", "isolated_until")}
+    health = st.health.clone()
+    health[1, 3] = n + 2
+    dwell = st.dwell.clone()
+    dwell[2, 5] = float("nan")
+    bad = dataclasses.replace(st, health=health, dwell=dwell, cumulative=st.cumulative - 1)
+    for state in (st, bad):
+        on_card = check_state(state, num_states=n, prev=prev)
+        on_cpu = check_state(dataclasses.replace(
+            state, **{f.name: getattr(state, f.name).cpu() for f in dataclasses.fields(state)}),
+            num_states=n, prev={k: v.cpu() for k, v in prev.items()})
+        assert on_card == on_cpu
+    assert len(on_card) == 3 and check_state(st, num_states=n, prev=prev) == []

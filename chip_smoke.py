@@ -64,6 +64,22 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      boundary, the restore, and the bytes per snapshot; at B = 64, the
      extra time broken down (boundaries alone, + host copy, + the writer
      thread, + the writer in the loop's thread);
+  4f. the simulation server — md-mini, covid, buckets of SERVE_CHUNK (10)
+     days, each a captured CUDA graph of the batched day: the captured
+     runner bitwise equal to eager run_days over three chunks (phase 4d's
+     B = 8 and TTI ensemble cores on each backend; replays under
+     sync-debug "error", one launch per replayed day); eager against graph
+     ms/day at B = 8 and 64 (eager, graph, graph, eager) and a profile of
+     three replays at each (ops per replayed day, idle share, one
+     interaction launch a day); a closed-loop mix of 18 requests over six
+     B = 8 buckets (presets none, lockdown, school-closure, vax-seniors and
+     tti; both backends; 1-4 scenarios, 60-200 days; all four kernels),
+     zero captures after the warm-ups, the first six (one per bucket)
+     bitwise equal to their solo api.run, latency p50/p99 and requests/s;
+     one served dispatch under the profiler (one interaction launch per
+     day); sixteen four-scenario requests in one B = 64 dispatch, the first
+     bitwise against its solo run; and
+     ``python -m repro_torch.launch.serve_sim --check`` once;
   5. reference — twin-2k on the card against the plain path on the CPU, 30
      days untraced and 25 days under test-trace-isolate: the same
      trajectory up to float ulps in exp/log;
@@ -83,7 +99,8 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      session giving identical tokens; prefill ms, decode ms per step and
      tokens/s.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (``launches``: phase
+4d's; ``served_launches``: phase 4f's closed-loop mix); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
 package ``repro``.
 """
@@ -905,14 +922,15 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     B = 1, 8 and 64 (ms per scenario-day, one launch a day for the batch,
     B = 8 equal to the ensemble); and the sweep CLI once. Returns the main
     path's launch counts by kernel and the last api.run result of each
-    study width."""
+    study width, and the cores it built (phase 4f captures their runners),
+    by (label, backend) and "B=64"."""
     from repro_torch import api
     from repro_torch.configs import INTERVENTION_PRESETS
     from repro_torch.configs.sweep import ScenarioBatch
     from repro_torch.engine import EngineCore
     from repro_torch.launch import sweep
 
-    main_launches = {}
+    main_launches, cores = {}, {}
     batch = ScenarioBatch.from_product(
         interventions={n: INTERVENTION_PRESETS[n] for n in ENSEMBLE_PRESETS},
         tau=epi.tau, seeds=[0, 1])
@@ -921,6 +939,7 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     for backend, kname in (("pallas-compact", "interactions_compact"),
                            ("pallas", "interactions_padded")):
         core = EngineCore(pop, batch, block_size=BLOCK, device="cuda", backend=backend)
+        cores[("B=8", backend)] = core
         # every observable updates inside the loop (none may sync)
         final, hist, launches, dt = run_path(core, wrappers, DAYS, column=None,
                                              observables=tuple(api.OBSERVABLES))
@@ -963,6 +982,7 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     for backend, kname in (("pallas-compact", "interactions_compact_traced"),
                            ("pallas", "interactions_padded_traced")):
         c = EngineCore(pop, tti, block_size=BLOCK, device="cuda", backend=backend)
+        cores[(f"TTI B={len(tti)}", backend)] = c
         final, hist, launches, dt = run_path(c, wrappers, DAYS, column=None)
         expect_launches(launches, kname, DAYS, f"TTI ensemble, {backend}")
         main_launches[kname] = launches[kname]
@@ -1014,12 +1034,13 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     big = api.ExperimentSpec(dataset=DATASET, interventions=STUDIES[2][1],
                              tau_scales=STUDIES[2][2], replicates=STUDIES[2][3]).build_batch()
     c64 = EngineCore(pop, big, block_size=BLOCK, device="cuda")
+    cores["B=64"] = c64
     profile_days(c64, c64.run_days(PROFILE_FROM)[0], card, f"ensemble-B{len(big)}")
 
     stamp("sweep CLI")
     sweep.main(["--dataset", DATASET, "--days", "30", "--interventions", "none,lockdown",
                 "--replicates", "2"])
-    return main_launches, studies
+    return main_launches, studies, cores
 
 
 def same_study(a, b, what: str) -> None:
@@ -1248,6 +1269,297 @@ def checkpoint_breakdown(pop, width: int, fresh, card) -> None:
         f"np.save) per boundary ms {[round(1e3 * t, 3) for t in saves]}; {card}")
 
 
+# Phase 4f: the simulation server (repro_torch.serve) on md-mini, covid. A
+# bucket's runner is a CUDA graph of SERVE_CHUNK batched days.
+SERVE_CHUNK = 10
+SERVE_TIMED_DAYS = 100  # eager run_days against SERVE_TIMED_DAYS / SERVE_CHUNK replays
+# The closed-loop mix's buckets, (interventions, backend): requests of 1-4
+# scenarios, so each kind has one B = 8 bucket; between them they run all
+# four interaction kernels inside captured graphs.
+SERVE_KINDS = ((("none",), "pallas-compact"), (("lockdown",), "pallas-compact"),
+               (("school-closure",), "pallas"), (("vax-seniors",), "pallas-compact"),
+               (("tti",), "pallas-compact"), (("tti",), "pallas"))
+SERVE_REQUESTS = 18
+SERVE_CONCURRENCY = 3  # closed-loop clients, one request in flight each
+SERVE_SOLO = 6  # the mix's first requests (one per kind), each against its solo api.run
+SERVE_WIDE = 16  # requests of four scenarios packed into one B = 64 dispatch
+SERVE_WIDE_SOLO = 1
+
+
+def serve_mix(epi) -> list:
+    """The closed-loop mix: request i is kind i % 6 with 1-4 scenarios,
+    its own seed and tau, and 60-200 days."""
+    from repro_torch import api
+
+    mix = []
+    for i in range(SERVE_REQUESTS):
+        ivs, backend = SERVE_KINDS[i % len(SERVE_KINDS)]
+        mix.append(api.ExperimentSpec(
+            name=f"req{i}", dataset=DATASET, interventions=ivs, backend=backend,
+            replicates=1 + (3 * i) % 4, seed=1000 + 17 * i,
+            tau=epi.tau * (1.0, 0.85, 1.15)[i % 3], days=(60, 100, 150, 200)[(i // 2) % 4]))
+    return mix
+
+
+def captured_runner_checks(cores, wrappers, card) -> None:
+    """The captured runner against eager run_days: for phase 4d's B = 8
+    ensemble and TTI ensemble cores on each backend, three SERVE_CHUNK-day
+    replays from the initial state (under sync-debug "error", launches
+    counted per replay) bitwise equal to one eager run of 3 * SERVE_CHUNK
+    days, history and final state."""
+    for label, traced in (("B=8", ""), (f"TTI B={TTI_REPLICATES}", "_traced")):
+        for backend, kname in (("pallas-compact", "interactions_compact"),
+                               ("pallas", "interactions_padded")):
+            kname += traced
+            core = cores[(label, backend)]
+            final, _, hist, _ = core.run_days(3 * SERVE_CHUNK)
+            runner = core.runner_fn(SERVE_CHUNK)
+            runner(core.params, core.init_state())  # the capture
+            (build,) = runner.builds()
+            state, hists = core.init_state(), []
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(3):
+                    state, _, h, _ = runner(core.params, state)
+                    hists.append(h)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            expect_launches({k: w.launches for k, w in wrappers.items()}, kname,
+                            3 * SERVE_CHUNK, f"captured runner {label} {backend}")
+            if not torch.equal(torch.cat(hists), hist):
+                raise AssertionError(f"captured runner {label} {backend}: history != eager")
+            for f in ("health", "dwell", "cumulative", "iv_active", "vaccinated", "tested",
+                      "traced", "isolated_until", "day"):
+                if not torch.equal(getattr(final, f), getattr(state, f)):
+                    raise AssertionError(f"captured runner {label} {backend}: final '{f}' "
+                                         "!= eager")
+            log(f"[served] captured runner {label} {backend}: 3 replays of {SERVE_CHUNK} "
+                f"days bitwise equal to eager run_days (chunks 1-3, final state); "
+                f"launches={3 * SERVE_CHUNK} ({kname}); capture {build.capture_s:.3f} s, "
+                f"graph pool {build.pool_bytes} bytes, static inputs {build.input_bytes} "
+                f"bytes; {card}")
+
+
+def profile_replays(core, runner, state, label: str, card: str) -> None:
+    """torch.profiler over three replays of ``runner`` from ``state``: device
+    ops per replayed day, busy time, idle share, and one interaction-kernel
+    launch per replayed day."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    days = 3 * SERVE_CHUNK
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state = runner(core.params, state)[0]
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in dev if "interactions_kernel" in e.name]
+    if len(kern) != days:
+        raise AssertionError(f"[profile:{label}] {len(kern)} interaction-kernel launches "
+                             f"in {days} replayed days")
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
+    k_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    B = core.num_real
+    log(f"[profile:{label}] B={B}, 3 replays of {SERVE_CHUNK} days (profiler on): wall "
+        f"{wall_ms / days:.3f} ms/day ({wall_ms / days / B:.4f} ms per scenario-day), device "
+        f"busy {busy / days:.3f} ms/day over a span of {span / days:.3f} ms/day, idle share "
+        f"{1.0 - busy / span:.4f}; {len(dev) / days:.1f} device ops/day; interactions_kernel "
+        f"{len(kern)} launches ({len(kern) / days:.0f} per replayed day), {k_ms / days:.4f} "
+        f"ms/day; {card}")
+    by_name: dict = {}
+    for e in dev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        log(f"[profile:{label}]   {ms / days:9.4f} ms/day  {n / days:6.1f}/day  {name[:110]}")
+
+
+def graph_against_eager(cores, card) -> None:
+    """ms/day of eager run_days against replays of the captured runner at
+    B = 8 and 64 (phase 4d's pallas-compact cores, untraced),
+    SERVE_TIMED_DAYS days each, in the order eager, graph, graph, eager;
+    then a profile of three replays at each width."""
+    for core in (cores[("B=8", "pallas-compact")], cores["B=64"]):
+        runner = core.runner_fn(SERVE_CHUNK)
+        runner(core.params, core.init_state())  # built already at B = 8
+        (build,) = runner.builds()
+
+        def eager():
+            core.run_days(SERVE_TIMED_DAYS)
+
+        def graph():
+            state = core.init_state()
+            for _ in range(SERVE_TIMED_DAYS // SERVE_CHUNK):
+                state = runner(core.params, state)[0]
+
+        ms = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (eager if mode == "eager" else graph)()
+            torch.cuda.synchronize()
+            ms[mode].append(round((time.perf_counter() - t0) * 1e3 / SERVE_TIMED_DAYS, 4))
+        B = core.num_real
+        log(f"[served] B={B} ms/day over {SERVE_TIMED_DAYS} days (order eager, graph, graph, "
+            f"eager): eager run_days {ms['eager']}, captured runner {ms['graph']} -> "
+            f"{sum(ms['eager']) / sum(ms['graph']):.2f}x; "
+            f"ms per scenario-day {[round(g / B, 5) for g in ms['graph']]} (graph); capture "
+            f"{build.capture_s:.3f} s, graph pool {build.pool_bytes} bytes; {card}")
+        profile_replays(core, runner, core.run_days(PROFILE_FROM)[0], f"served-B{B}", card)
+
+
+def served_phase(pop, epi, cores, wrappers, card) -> dict:
+    """Phase 4f: the simulation server (``cores``: phase 4d's). Returns the
+    closed-loop mix's launch counts by kernel (counts set to 0 just before
+    the mix, read just after)."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from repro_torch import api
+    from repro_torch.serve import ServeConfig, SimulationServer
+
+    captured_runner_checks(cores, wrappers, card)
+    graph_against_eager(cores, card)
+
+    stamp("served mix")
+    mix = serve_mix(epi)
+    server = SimulationServer(ServeConfig(chunk_days=SERVE_CHUNK, b_lattice=(8,),
+                                          max_executables=len(SERVE_KINDS)))
+    server._pops[DATASET] = pop
+    for ivs, backend in SERVE_KINDS:
+        spec = next(s for s in mix if s.interventions == ivs and s.backend == backend)
+        info = server.warm_up(spec)
+        (build,) = server._buckets.peek(spec_bucket(spec, server)).runner().builds()
+        log(f"[served] warm-up {info['bucket']}: capture {info['compile_s']:.3f} s "
+            f"(eager warm-up chunk + capture), graph pool {build.pool_bytes} bytes")
+    builds = lambda srv: sum(b.runner().cache_size() for b in
+                             (srv._buckets.peek(k) for k in srv._buckets))
+    before = builds(server)
+    chunks0 = server.metrics_dict()["batches"]["chunks_run"]
+    results = [None] * len(mix)
+
+    def client(worker: int):
+        for i in range(worker, len(mix), SERVE_CONCURRENCY):
+            results[i] = server.submit(mix[i]).result(timeout=600)
+
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with server:
+        with Pool(max_workers=SERVE_CONCURRENCY) as pool:
+            for f in [pool.submit(client, w) for w in range(SERVE_CONCURRENCY)]:
+                f.result()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    m = server.metrics_dict()
+    chunks = m["batches"]["chunks_run"] - chunks0
+    if sum(launches.values()) != chunks * SERVE_CHUNK or min(launches.values()) <= 0:
+        raise AssertionError(f"served mix: launches {launches} for {chunks} chunks of "
+                             f"{SERVE_CHUNK} days (every kernel must run)")
+    ex = m["executables"]
+    if builds(server) != before or ex["recompile_violations"] or \
+            ex["cold_compiles"] != len(SERVE_KINDS) or m["requests"]["failed"] or \
+            m["requests"]["completed"] != len(mix) or \
+            not all(r.served_from["warm"] for r in results):
+        raise AssertionError(f"served mix: a capture after warm-up, a failure or a cold "
+                             f"dispatch: {json.dumps(m)}")
+    for i, (spec, served) in enumerate(zip(mix[:SERVE_SOLO], results)):
+        solo = api.run(spec, population=pop)
+        same_study(solo, served, f"served request {i}")
+        if solo.summaries != served.summaries or \
+                served.history["cumulative"].shape != (spec.days, spec.num_scenarios):
+            raise AssertionError(f"served request {i}: summaries or shape differ")
+    per_day = [r.served_from["dispatch_wall_s"] / r.served_from["padded_days"] for r in results]
+    lat = m["request_latency"]
+    log(f"[served] closed-loop mix, {len(mix)} requests ({SERVE_CONCURRENCY} clients; "
+        f"kinds {[f'{i[0]}/{b}' for i, b in SERVE_KINDS]}; 1-4 scenarios, 60-200 days): "
+        f"{m['batches']['dispatched'] - len(SERVE_KINDS)} dispatches, {chunks} chunks, "
+        f"launches {launches}; zero captures after warm-up; the first {SERVE_SOLO} bitwise "
+        f"equal to their solo api.run (history, observables, summaries); {card}")
+    log(f"[served] B=8 mix: request latency p50 {lat['p50_s']:.4f} s p99 {lat['p99_s']:.4f} "
+        f"s (mean {lat['mean_s']:.4f}); time to first day p50 "
+        f"{m['time_to_first_day']['p50_s']:.4f} s; {len(mix) / wall:.3f} requests/s "
+        f"({wall:.3f} s); served ms/day (dispatch wall / padded days) median "
+        f"{1e3 * float(np.median(per_day)):.3f} min {1e3 * min(per_day):.3f} max "
+        f"{1e3 * max(per_day):.3f}; occupancy {m['batches']['occupancy']:.3f}; {card}")
+
+    # One served dispatch under the profiler: one interaction launch a day.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    one = mix[0].with_overrides(days=3 * SERVE_CHUNK, seed=7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.run(one)
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "interactions_kernel" in e.name)
+    if n != 3 * SERVE_CHUNK:
+        raise AssertionError(f"served dispatch: the profiler counts {n} interaction "
+                             f"launches in {3 * SERVE_CHUNK} days")
+    log(f"[served] one dispatch of {3 * SERVE_CHUNK} days under the profiler: {n} "
+        "interaction-kernel launches, one per replayed day")
+
+    # B = 64: sixteen four-scenario requests packed into one dispatch.
+    wide = SimulationServer(ServeConfig(chunk_days=SERVE_CHUNK, b_lattice=(64,)))
+    wide._pops[DATASET] = pop
+    reqs = [api.ExperimentSpec(name=f"wide{i}", dataset=DATASET,
+                               interventions=ENSEMBLE_PRESETS, seed=2000 + 31 * i,
+                               tau=epi.tau * (1.0, 0.9)[i % 2], days=SERVE_TIMED_DAYS)
+            for i in range(SERVE_WIDE)]
+    info = wide.warm_up(reqs[0])
+    before = builds(wide)
+    t0 = time.perf_counter()
+    tickets = [wide.submit(r) for r in reqs]
+    wide.drain()
+    wall = time.perf_counter() - t0
+    res = [t.result(timeout=600) for t in tickets]
+    m = wide.metrics_dict()
+    if builds(wide) != before or m["executables"]["recompile_violations"] or \
+            any(r.served_from["batch_requests"] != SERVE_WIDE or not r.served_from["warm"]
+                for r in res):
+        raise AssertionError(f"B=64 server: not one warm dispatch: {json.dumps(m)}")
+    for spec, served in list(zip(reqs, res))[:SERVE_WIDE_SOLO]:
+        same_study(api.run(spec, population=pop), served, f"B=64 served {spec.name}")
+    d = res[0].served_from
+    log(f"[served] B=64: {SERVE_WIDE} requests of 4 scenarios in one dispatch of "
+        f"{d['padded_days']} days: served {1e3 * d['dispatch_wall_s'] / d['padded_days']:.3f} "
+        f"ms/day ({1e3 * d['dispatch_wall_s'] / d['padded_days'] / 64:.5f} ms per "
+        f"scenario-day), {SERVE_WIDE / wall:.3f} requests/s ({wall:.3f} s submit to drained), "
+        f"request latency p50 {m['request_latency']['p50_s']:.4f} s p99 "
+        f"{m['request_latency']['p99_s']:.4f} s; capture {info['compile_s']:.3f} s; the first "
+        f"{SERVE_WIDE_SOLO} bitwise equal to their solo api.run; {card}")
+
+    stamp("serve_sim CLI")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_sim", "--dataset", DATASET,
+         "--days", "60", "--chunk-days", str(SERVE_CHUNK), "--requests", "8",
+         "--concurrency", "2", "--b-lattice", "8", "--check"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    if proc.returncode != 0 or "check OK" not in proc.stdout:
+        raise AssertionError(f"serve_sim --check failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    load = json.loads(proc.stdout[proc.stdout.index("{"):proc.stdout.rindex("}") + 1])
+    log(f"[served] serve_sim --check on {DATASET}: {json.dumps(load['load'])}; "
+        f"{json.dumps(load['executables'])}")
+    return launches
+
+
+def spec_bucket(spec, server):
+    """The BucketKey a spec lands in on ``server``."""
+    from repro_torch.serve import bucketize
+
+    return bucketize(spec.validate(), server.config).bucket
+
+
 def interactions_only(src: str) -> int:
     """Phases 1 and 3 alone, on the interaction kernels of the checkout whose
     ``src`` directory is given (its own build, wrappers and plain versions,
@@ -1430,11 +1742,15 @@ def main() -> int:
 
     # ---- phase 4d: scenario batches, this slice's main path -----------------
     stamp("ensembles")
-    main_launches, studies = ensemble_phase(pop, covid, epi, wrappers, card)
+    main_launches, studies, cores = ensemble_phase(pop, covid, epi, wrappers, card)
 
     # ---- phase 4e: chunked runs and recovery ------------------------------
     stamp("chunked runs")
     chunked_phase(pop, wrappers, studies, card)
+
+    # ---- phase 4f: the simulation server ----------------------------------
+    stamp("simulation server")
+    served_launches = served_phase(pop, epi, cores, wrappers, card)
 
     # ---- phase 5: reference on a small input ------------------------------
     stamp("reference")
@@ -1482,6 +1798,7 @@ def main() -> int:
             "source": os.path.relpath(kernel.SOURCE, ROOT),
             "replaces": replaces,
             "launches": main_launches[kname],
+            "served_launches": served_launches[kname],
             "max_abs_err": max(rec["max_abs_err"],
                                *(r["max_abs_err"] for r in records[kname].values())),
             "ms": rec["ms"],

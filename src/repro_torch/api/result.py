@@ -57,6 +57,14 @@ class RunResult:
         """Scenario ``i``'s (days,) trajectory slices."""
         return {k: v[:, i] for k, v in self.history.items()}
 
+    @property
+    def served_from(self) -> Dict[str, Any]:
+        """Serving-tier provenance (bucket label, slot placement, warm/
+        cold, batch occupancy) when this result came out of a
+        :class:`repro_torch.serve.server.SimulationServer`; ``None`` for
+        plain :func:`repro_torch.api.run` results."""
+        return self.provenance.get("served_from")
+
     # ------------------------------------------------------------------
     def to_dict(self) -> dict:
         return {

@@ -188,6 +188,26 @@ class ExperimentSpec:
     def num_scenarios(self) -> int:
         return len(self.interventions) * len(self.tau_scales) * self.replicates
 
+    def compile_fingerprint(self) -> dict:
+        """The spec fields that shape a runner, as opposed to the ones that
+        merely feed it tensor values: the reference's dict, field for field
+        (``backend`` is the spec's name, not the port's route). Two specs
+        with equal fingerprints (plus equal quantized batch width / seeding
+        cap — see :mod:`repro_torch.serve.buckets`) share one warm runner,
+        on the card one captured CUDA graph: tau/seeds/replicate counts ride
+        in as tensors, days is served by chunked dispatch, and observables
+        are replayed after the run. The interventions *tuple* (names, in
+        order) is part of it because it fixes the batch's slot structure."""
+        return {
+            "dataset": self.dataset,
+            "disease": self.disease,
+            "interventions": tuple(self.interventions),
+            "static_network": bool(self.static_network),
+            "backend": self.backend,
+            "block_size": int(self.block_size),
+            "pack_visits": bool(self.pack_visits),
+        }
+
     def base_tau(self) -> float:
         if self.tau is not None:
             return float(self.tau)

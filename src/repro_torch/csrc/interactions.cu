@@ -146,6 +146,9 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace {
 
 constexpr unsigned kC1 = 0x85EBCA6Bu;
@@ -618,15 +621,37 @@ __global__ void __launch_bounds__(1024) interactions_kernel(const Args a) {
   }
 }
 
+constexpr int kMaxDevices = 64;  // devices whose shared-memory opt-in is cached
+
+// Opts the instantiation into `smem` bytes of dynamic shared memory on the
+// current device, once per device for the largest size asked so far (tiles
+// of 256 and wider need more than the default 48 KiB). Later launches, and
+// so launches captured into a CUDA graph, only read the device's index.
+template <bool kTraced, bool kPadded>
+int prepare_shared(size_t smem) {
+  static std::atomic<int> opted[kMaxDevices];  // bytes opted in, per device
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool cached = dev < kMaxDevices;
+  const int want = static_cast<int>(smem);
+  if (cached && opted[dev].load(std::memory_order_acquire) >= want) return 0;
+  // Under the lock the size only grows, so no thread lowers another's opt-in.
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  if (cached && opted[dev].load(std::memory_order_acquire) >= want) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(interactions_kernel<kTraced, kPadded>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, want);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cached) opted[dev].store(want, std::memory_order_release);
+  return 0;
+}
+
 template <bool kTraced, bool kPadded>
 int launch(const Args& a, int threads, int num_scenarios, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(shared_words(a.b, threads)) * sizeof(int);
-  if (smem > 48 * 1024) {  // tiles of 256 and wider
-    const cudaError_t e = cudaFuncSetAttribute(interactions_kernel<kTraced, kPadded>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if (const int code = prepare_shared<kTraced, kPadded>(smem)) return code;
   const dim3 grid(static_cast<unsigned>(a.num_pairs), static_cast<unsigned>(num_scenarios));
   interactions_kernel<kTraced, kPadded><<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

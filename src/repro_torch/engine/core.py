@@ -10,6 +10,12 @@ everything around it, as the reference's ``repro.engine.core`` does:
     every op of the day over ``(B, ...)`` and one interaction-kernel launch
     a day. The reference's mesh layouts (``workers``, ``scenarios``,
     ``hybrid``) are ROADMAP queue 1 item 4;
+  * **warm runners** — :meth:`EngineCore.runner_fn` is the reference's
+    compile-once seam: one :class:`~repro_torch.engine.runner.DayRunner`
+    per ``(days, observables)`` key in a :class:`BoundedLRU`, on the card
+    a captured CUDA graph of the ``days``-day batched loop, replayed for
+    every call of the same shapes (the serving tier's warm bucket).
+    :meth:`EngineCore.run_days` stays the eager loop;
   * **chunking** — :func:`run_chunked` drives a run through a
     :class:`CoreDriver` (the batch in one loop, observables inside it) or a
     :class:`SequentialDriver` (one scenario at a time, observables replayed
@@ -47,6 +53,8 @@ from repro_torch.core import population as pop_lib
 from repro_torch.core import simulator as sim_lib
 from repro_torch.core import transmission as tx_lib
 from repro_torch.engine import day as day_lib
+from repro_torch.engine.cache import BoundedLRU
+from repro_torch.engine.runner import DayRunner
 from repro_torch.engine.topology import LocalTopology
 from repro_torch.kernels.interactions import ops as iops
 
@@ -233,7 +241,13 @@ class EngineCore:
     """One ScenarioBatch on one device, ready to run.
 
     ``layout`` is ``"local"``: the batch's B scenarios run as one batched
-    day loop on ``device`` (single runs are B = 1)."""
+    day loop on ``device`` (single runs are B = 1).
+
+    ``max_runners`` bounds the warm runners held (one per ``(days,
+    observables)`` key, LRU-evicted beyond it; ``None`` = unbounded).
+    ``max_seed_per_day`` is the reference's static seeding top-k width:
+    accepted and ignored, as the reference's local topology ignores it
+    (the seeding threshold is a full sort)."""
 
     def __init__(
         self,
@@ -244,6 +258,8 @@ class EngineCore:
         block_size: int = 128,
         device="cuda",
         backend: str = "pallas-compact",
+        max_seed_per_day: Optional[int] = None,
+        max_runners: Optional[int] = 8,
     ):
         if layout not in LAYOUTS:
             raise NotImplementedError(
@@ -257,7 +273,10 @@ class EngineCore:
         self.num_real = len(self.batch)
         self.layout = layout
         self.workers = 1  # the person axis is one worker's (meshes: item 4)
+        self.scen_shards = 1  # the scenario axis is not sharded (item 4)
+        self.padded = pad_batch(self.batch, self.scen_shards)
         self.block_size = block_size
+        self.max_seed_per_day = max_seed_per_day
         self.iv_slots, self.pa_slots, params_list = build_batch_params(
             pop, self.batch, device=self.device)
         self.params = stack_params(params_list)
@@ -273,6 +292,7 @@ class EngineCore:
             pa_slots=self.pa_slots,
             backend=backend,
         )
+        self._runners = BoundedLRU(max_entries=max_runners)
 
     @classmethod
     def single(
@@ -351,6 +371,63 @@ class EngineCore:
             return torch.as_tensor(new, device=self.device)
 
         return sim_lib.SimState(**{f: adopt(f) for f in _STATE_FIELDS})
+
+    # ------------------------------------------------------------------
+    # warm runners (the serving tier's compile-once seam)
+    # ------------------------------------------------------------------
+
+    def _runner(self, days: int, observables: tuple) -> DayRunner:
+        key = (days, observables)
+        cached = self._runners.get(key)
+        if cached is not None:
+            return cached
+        topo, static, week, num_real = self.topo, self.static, self.week, self.num_real
+
+        def run(params, state, carries):
+            return day_lib.run_days(topo, static, week, params, state, days,
+                                    observables, carries, num_real)
+
+        runner = DayRunner(run, self.device)
+        self._runners.put(key, runner)
+        return runner
+
+    def runner_fn(self, days: int, observables: tuple = ()) -> DayRunner:
+        """The warm runner for ``(days, observables)``, made (and cached)
+        on first request: ``runner(params, state, carries=()) ->
+        (final_state, carries, hist, dailies)`` over every slot of the
+        batch, ``hist`` (days, len(STAT_KEYS), B) on the device. On the
+        card its first call of a shape captures a CUDA graph and later calls
+        replay it. Public so the serving tier wraps the steady-state loop in
+        :class:`repro_torch.analysis.capture.recompile_sentinel` around the
+        runner that actually runs."""
+        return self._runner(days, tuple(observables))
+
+    def runner_cached(self, days: int, observables: tuple = ()) -> bool:
+        """Whether the ``(days, observables)`` runner is resident and built
+        (on the card: captured), without a recency bump or stats churn —
+        the warm/cold probe."""
+        runner = self._runners.peek((days, tuple(observables)))
+        return runner is not None and runner.cache_size() > 0
+
+    def runner_cache_stats(self) -> dict:
+        """Size/budget and lifetime hit/miss/eviction counts of the runner
+        cache (:class:`repro_torch.engine.cache.BoundedLRU`)."""
+        return self._runners.stats()
+
+    def bench_fn(self, days: int, observables: tuple = ()):
+        """A zero-argument timed callable: the whole ``days``-day runner
+        from the initial state, returning a device tensor (the final day),
+        so a timer that synchronises measures the loop, not a host copy of
+        the history."""
+        from repro_torch.api import observables as obs_lib  # cycle-free at call time
+
+        observables = tuple(observables)
+        runner = self._runner(days, observables)
+        params, state = self.params, self.init_state()
+        carries = obs_lib.init_carries(observables, obs_lib.ObsContext(
+            num_people=self.pop.num_people, num_scenarios=self.num_real,
+            device=str(self.device))) if observables else ()
+        return lambda: runner(params, state, carries)[0].day
 
     def run_days(
         self,

@@ -17,7 +17,9 @@ The source is compiled with ``nvcc`` into a shared library with a plain C
 interface at first use (into ``build/`` beside the package's ``csrc/``,
 keyed by a hash of the source and flags) and called through ``ctypes`` on
 PyTorch's current stream. Nothing here is imported or built when the module
-is imported. Each wrapper counts its own launches in ``<wrapper>.launches``.
+is imported. Each wrapper counts its own launches in ``<wrapper>.launches``
+(:data:`WRAPPERS`); a launch captured into a CUDA graph is counted at each
+replay instead (``engine/runner.py``).
 A launch has one CTA per (schedule entry, scenario), of :func:`threads`
 threads; the outputs are views of one zeroed buffer (one fill per call). The
 source's header states the design: the hoisted hash, the draw only for pairs
@@ -223,8 +225,10 @@ def interactions_padded_traced_cuda(*args, src_val, block_size: int):
     return acc, cnt, trc
 
 
-for _wrapper in (interactions_compact_cuda, interactions_compact_traced_cuda,
-                 interactions_padded_cuda, interactions_padded_traced_cuda):
+#: The four wrappers, each counting its launches in ``.launches``.
+WRAPPERS = (interactions_compact_cuda, interactions_compact_traced_cuda,
+            interactions_padded_cuda, interactions_padded_traced_cuda)
+for _wrapper in WRAPPERS:
     _wrapper.launches = 0
 
 

@@ -612,3 +612,92 @@ def test_guards_on_a_card_state_equal_its_cpu_copy(cuda):
             num_states=n, prev={k: v.cpu() for k, v in prev.items()})
         assert on_card == on_cpu
     assert len(on_card) == 3 and check_state(st, num_states=n, prev=prev) == []
+
+
+# The captured runner and the simulation server on the card: a runner is a
+# CUDA graph of the batched day loop, replayed per chunk, each chunk bitwise
+# its eager run (the later chunks too: nothing the loop reads as a Python
+# value varies by call); launches counted per replay; a served result
+# bitwise equal to a solo api.run on the card.
+
+
+@pytest.mark.parametrize("preset", ["none", "tti"])
+@pytest.mark.parametrize("backend", ["pallas-compact", "pallas"])
+def test_captured_runner_equals_eager_run_days(cuda, backend, preset):
+    from repro_torch.configs.sweep import ScenarioBatch
+    from repro_torch.engine.runner import CapturedDays
+
+    pop = get_epidemic("twin-2k").build()
+    batch = ScenarioBatch.from_product(
+        interventions={preset: INTERVENTION_PRESETS[preset]}, tau=2e-5, seeds=[0, 1, 2])
+    core = EngineCore(pop, batch, device=cuda, backend=backend)
+    kernel = {"pallas-compact": "compact", "pallas": "padded"}[backend] + (
+        "_traced" if preset == "tti" else "")
+    final, _, hist, _ = core.run_days(12)
+    runner = core.runner_fn(4)
+    state = core.init_state()
+    state, _, first, _ = runner(core.params, state)  # the capture
+    (build,) = runner.builds()
+    assert isinstance(build, CapturedDays) and build.pool_bytes > 0
+    assert build.launches == {WRAPPERS[kernel]: 4}
+    hists = [first]
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, _, h, _ = runner(core.params, state)
+            hists.append(h)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {k: w.launches for k, w in WRAPPERS.items()} == {
+        k: 8 if k == kernel else 0 for k in WRAPPERS}
+    assert runner.cache_size() == 1
+    assert torch.equal(torch.cat(hists), hist)
+    for f in dataclasses.fields(final):
+        assert torch.equal(getattr(final, f.name), getattr(state, f.name)), f.name
+    if preset == "tti":
+        assert hist[:, 7].sum() > 0  # tests were used
+
+
+def test_a_failed_capture_raises(cuda):
+    """A loop that syncs with the host cannot be captured: the build raises
+    and nothing is cached; there is no eager fall back on the card."""
+    from repro_torch.engine.runner import DayRunner
+
+    def syncs(params, state, carries):
+        return state, carries, params * float(state.sum()), None
+
+    runner = DayRunner(syncs, cuda)
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        runner(x, x)
+    assert runner.cache_size() == 0
+
+
+def test_served_on_the_card_bitwise_equals_solo_run(cuda):
+    from repro_torch import api
+    from repro_torch.engine.runner import CapturedDays
+    from repro_torch.serve import ServeConfig, SimulationServer
+
+    pop = get_epidemic("twin-2k").build()
+    server = SimulationServer(ServeConfig(chunk_days=4, b_lattice=(8,)))
+    server._pops["twin-2k"] = pop
+    base = api.ExperimentSpec(dataset="twin-2k", days=10, tau=2e-5,
+                              interventions=("none", "lockdown"))
+    assert not server.warm_up(base)["already_warm"]
+    specs = [base.with_overrides(seed=3), base.with_overrides(seed=5, replicates=2),
+             base.with_overrides(seed=9, days=7)]
+    tickets = [server.submit(s) for s in specs]
+    server.drain()
+    for spec, ticket in zip(specs, tickets):
+        served = ticket.result(timeout=120)
+        assert served.served_from["warm"]
+        _same_study(api.run(spec, population=pop), served)
+    m = server.metrics_dict()
+    assert m["executables"] == {"cold_compiles": 1, "warm_dispatches": 2,
+                                "recompile_violations": 0}
+    (key,) = list(server._buckets)
+    (build,) = server._buckets.peek(key).runner().builds()
+    assert isinstance(build, CapturedDays)

@@ -80,6 +80,21 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      day); sixteen four-scenario requests in one B = 64 dispatch, the first
      bitwise against its solo run; and
      ``python -m repro_torch.launch.serve_sim --check`` once;
+  4g. meshes — ranks started by ``repro_torch.launch.mesh.spawn`` (every
+     group's timeout 60 s, each spawn's wall limit 400 s); the ranks share
+     one card, so no scaling claim: (a) one rank over nccl, the ``workers``
+     layout W = 1 (the exchange runs, all to itself) on each backend, the
+     day loop under sync-debug "error", history and final state bitwise
+     phase 4's; (b) two ranks sharing cuda:0 over gloo, W = 2, the same
+     runs and TTI on each backend, bitwise phases 4 and 4c; (c) the B = 8
+     study through ``api.run`` sharded over S = 2 and on a 2 x 2 hybrid mesh
+     (four ranks), every column and observable bitwise phase 4d's; (d) the
+     B = 1 study on engine ``dist`` (W = 2) checkpointed every 50 days and a
+     100-day prefix resumed to 200 (rank 0 writes), bitwise the unchunked
+     study, and the W = 2 snapshot of day 100 resumed under ``local``
+     (``run_chunked`` with its resume key), bitwise; one launch per rank per
+     day throughout; per layout ms/day, each rank's host build, collectives
+     per day by kind and bytes sent;
   5. reference — twin-2k on the card against the plain path on the CPU, 30
      days untraced and 25 days under test-trace-isolate: the same
      trajectory up to float ulps in exp/log;
@@ -100,7 +115,8 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      tokens/s.
 
 The line before the last is the kernels' JSON record (``launches``: phase
-4d's; ``served_launches``: phase 4f's closed-loop mix); the last line is
+4d's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
+phase 4g's, summed over its ranks); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
 package ``repro``.
 """
@@ -1553,6 +1569,284 @@ def served_phase(pop, epi, cores, wrappers, card) -> dict:
     return launches
 
 
+MESH_TIMEOUT_S = 60.0  # every group's timeout in phase 4g
+MESH_WALL_S = 400.0  # the wall limit of each spawn
+MESH_ROOT = os.path.join(ROOT, "build", "chip_smoke_mesh")
+
+
+def _kernel_counts(reset: bool = False) -> dict:
+    """This process's launch counts by kernel name (set to 0 with reset)."""
+    from repro_torch.kernels.interactions import kernel
+
+    out = {}
+    for kname, (wname, *_) in KERNELS.items():
+        w = getattr(kernel, wname)
+        out[kname] = w.launches
+        if reset:
+            w.launches = 0
+    return out
+
+
+def _mesh_run(core, days: int, sync_debug: bool) -> dict:
+    """``days`` days of ``core`` (a mesh layout) from its initial state, the
+    launch counts set to 0 just before and read just after; the day loop
+    under sync-debug "error" when asked (gloo's collectives block the host,
+    so gloo runs are exempt). Returns what the parent compares and prints."""
+    import torch.distributed as dist
+
+    from repro_torch.engine import hist_to_numpy
+
+    state = core.init_state()
+    group = core.mesh.worker_group or core.mesh.scenario_group
+    dist.all_reduce(torch.zeros(1, device="cuda"), group=group)  # communicator up
+    torch.cuda.synchronize()
+    core.topo.reset_counts()
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error" if sync_debug else 0)
+    try:
+        final, _, hist, _ = core.run_days(days, state=state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _kernel_counts()
+    counts, sent = dict(core.topo.counts), dict(core.topo.bytes_sent)
+    full = core.gather_state(final)
+    return dict(final={f: getattr(full, f).cpu().numpy() for f in MESH_STATE},
+                hist=hist_to_numpy(hist), launches=launches, ms_per_day=1e3 * dt / days,
+                per_day={k: v / days for k, v in counts.items()},
+                bytes_per_day={k: v / days for k, v in sent.items()})
+
+
+MESH_STATE = ("health", "dwell", "cumulative", "vaccinated", "tested", "traced",
+              "isolated_until")
+
+
+def _mesh_cores(pop, days: int, cases, sync_debug: bool) -> dict:
+    """The ``workers`` layout over the whole group (one plan for every core)
+    on each (preset, backend) of ``cases``: {(preset, backend): _mesh_run}."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
+    from repro_torch.core import disease as disease_lib
+    from repro_torch.core import simulator_dist as sd
+    from repro_torch.core import transmission as tx_lib
+    from repro_torch.engine import EngineCore
+
+    epi = get_epidemic(DATASET)
+    t0 = time.perf_counter()
+    plan = sd.build_dist_plan(pop, dist.get_world_size(), BLOCK)
+    out = {"plan_build_s": time.perf_counter() - t0}
+    for preset, backend in cases:
+        core = EngineCore.single(pop, disease_lib.covid_model(),
+                                 tx_lib.TransmissionModel(tau=epi.tau), seed=0,
+                                 block_size=BLOCK, device="cuda", backend=backend,
+                                 layout="workers", plan=plan,
+                                 interventions=INTERVENTION_PRESETS[preset])
+        out[(preset, backend)] = _mesh_run(core, days, sync_debug)
+    out["fold_mismatches"] = sd.fold_mismatches(plan, pop)
+    return out
+
+
+def _counted_study(spec, pop) -> tuple:
+    """api.run on this rank with the launch counts set to 0 just before and
+    read just after: (RunResult, launches)."""
+    from repro_torch import api
+
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    r = api.run(spec, population=pop)
+    return r, _kernel_counts()
+
+
+def _rank_nccl(pop, days):
+    """Phase 4g (a): one rank over nccl, W = 1, both backends, the day loop
+    under sync-debug "error"."""
+    return _mesh_cores(pop, days, (("none", "pallas-compact"), ("none", "pallas")), True)
+
+
+def _rank_two(pop, days, root):
+    """Phase 4g (b)-(d) on two ranks sharing the card over gloo: W = 2 on both
+    backends, untraced and TTI; the B = 8 study sharded over S = 2; the
+    B = 1 study on engine dist checkpointed, and a prefix resumed (its
+    snapshot copied for the parent to resume under local)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    out = {"workers": _mesh_cores(pop, days, (
+        ("none", "pallas-compact"), ("none", "pallas"), ("tti", "pallas-compact"),
+        ("tti", "pallas")), False)}
+    out["sharded"] = _counted_study(study_spec(8).with_overrides(scenarios=2), pop)
+    ck = lambda d, **kw: study_spec(1, **kw).with_overrides(
+        workers=2, ckpt_dir=os.path.join(root, d), ckpt_every=CKPT_EVERY)
+    out["chunked"] = _counted_study(ck("chunked"), pop)
+    out["prefix"] = _counted_study(ck("prefix", days=DAYS // 2), pop)
+    if dist.get_rank() == 0:
+        shutil.copytree(os.path.join(root, "prefix"), os.path.join(root, "prefix-for-local"))
+    dist.barrier()
+    out["resumed"] = _counted_study(ck("prefix"), pop)
+    return out
+
+
+def _rank_four(pop, days):
+    """Phase 4g (c): the B = 8 study on a 2 x 2 hybrid mesh, four ranks
+    sharing the card over gloo."""
+    return {"hybrid": _counted_study(study_spec(8).with_overrides(workers=2, scenarios=2),
+                                     pop)}
+
+
+def _mesh_line(tag: str, r: dict, card: str) -> None:
+    log(f"[mesh] {tag}: {r['ms_per_day']:.3f} ms/day; collectives/day {json.dumps(r['per_day'], sort_keys=True)}; bytes sent/day "
+        f"{json.dumps({k: round(v) for k, v in r['bytes_per_day'].items()}, sort_keys=True)}; "
+        f"{card}")
+
+
+def _same_as_local(r: dict, ref: tuple, P: int, what: str) -> None:
+    """A rank's gathered final state and history bitwise ``ref`` =
+    (final (1, P) tensors, hist {stat: (days,)})."""
+    final, hist = ref
+    for k, v in hist.items():
+        if not np.array_equal(r["hist"][k][:, 0], v[:len(r["hist"][k])]):
+            raise AssertionError(f"{what}: history '{k}' differs from the local run")
+    for f in MESH_STATE:
+        got = r["final"][f]
+        got = got[..., :P] if got.ndim == 2 else got
+        if not np.array_equal(got, getattr(final, f).cpu().numpy()):
+            raise AssertionError(f"{what}: final '{f}' differs from the local run")
+
+
+def mesh_phase(pop, wrappers, local, studies, card) -> dict:
+    """Phase 4g: the mesh layouts on one card. ``local``: phase 4/4c's runs
+    by (preset, backend) -> (final, hist); ``studies``: phase 4d's api.run
+    results by width. Returns the mesh runs' launches by kernel, summed
+    over ranks."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import observables as obs_lib
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import EngineCore, core as core_lib
+    from repro_torch.launch import mesh as mesh_lib
+
+    P, days = pop.num_people, DAYS
+    log(f"[mesh] ranks share one card; no scaling claim. {DAYS} days of {DATASET}; "
+        f"every group's timeout {MESH_TIMEOUT_S:.0f} s, each spawn's wall limit "
+        f"{MESH_WALL_S:.0f} s; {card}")
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    os.makedirs(MESH_ROOT)
+    init = tempfile.mkdtemp(prefix="pg-", dir=MESH_ROOT)
+    spawn = lambda fn, n, backend, *args: mesh_lib.spawn(
+        fn, n, backend=backend, device="cuda:0", init_dir=init, args=(pop, days, *args),
+        timeout_s=MESH_TIMEOUT_S, wall_s=MESH_WALL_S)
+    total = {k: 0 for k in KERNELS}
+
+    def launched(launches, kname, n, what):
+        expect_launches(launches, kname, n, what)
+        for k, v in launches.items():
+            total[k] += v
+
+    kname = {("none", "pallas-compact"): "interactions_compact",
+             ("none", "pallas"): "interactions_padded",
+             ("tti", "pallas-compact"): "interactions_compact_traced",
+             ("tti", "pallas"): "interactions_padded_traced"}
+
+    # (a) one rank over nccl
+    stamp("mesh (a): one rank over nccl")
+    t0 = time.perf_counter()
+    (one,) = spawn(_rank_nccl, 1, "nccl")
+    log(f"[mesh] (a) spawn of 1 rank: {time.perf_counter() - t0:.1f} s")
+    for key in (("none", "pallas-compact"), ("none", "pallas")):
+        r = one[key]
+        launched(r["launches"], kname[key], days, f"mesh W=1 nccl {key}")
+        _same_as_local(r, local[key], P, f"mesh W=1 nccl {key}")
+        _mesh_line(f"(a) workers W=1 over nccl, {key[1]}, day loop under sync-debug "
+                   f"\"error\", bitwise equal to phase 4, {days} launches", r, card)
+    log(f"[mesh] (a) plan build (W=1) {one['plan_build_s']:.2f} s on the host; location runs "
+        f"cut unlike the local layout: {one['fold_mismatches']}")
+
+    # (b)-(d) two ranks sharing the card over gloo
+    stamp("mesh (b)-(d): two ranks over gloo")
+    t0 = time.perf_counter()
+    two = spawn(_rank_two, 2, "gloo", MESH_ROOT)
+    log(f"[mesh] (b)-(d) spawn of 2 ranks: {time.perf_counter() - t0:.1f} s")
+    for rank, res in enumerate(two):
+        log(f"[mesh] (b) rank {rank}: plan build (W=2) {res['workers']['plan_build_s']:.2f} s "
+            f"on the host; location runs cut unlike the local layout: "
+            f"{res['workers']['fold_mismatches']}")
+        for key in kname:
+            r = res["workers"][key]
+            launched(r["launches"], kname[key], days, f"mesh W=2 rank {rank} {key}")
+            _same_as_local(r, local[key], P, f"mesh W=2 rank {rank} {key}")
+            _mesh_line(f"(b) workers W=2 over gloo, rank {rank}, {key[0]} on {key[1]}, "
+                       f"bitwise equal to phase {'4c' if key[0] == 'tti' else '4'}, "
+                       f"{days} launches", r, card)
+        sharded, launches = res["sharded"]
+        launched(launches, "interactions_compact", days, f"sharded S=2 rank {rank}")
+        same_study(studies[8], sharded, f"sharded S=2 rank {rank} against phase 4d's B=8")
+        prov = sharded.provenance
+        log(f"[mesh] (c) api.run B=8 sharded over S=2, rank {rank}: every column and "
+            f"observable bitwise phase 4d's; {days} launches on this rank (B=4 a day); "
+            f"run_wall_s={prov['run_wall_s']} -> {1e3 * prov['run_wall_s'] / days:.3f} ms/day; "
+            f"host build {prov['plan_build_s']:.2f} s (the local week); collectives "
+            f"{json.dumps(prov['collectives'], sort_keys=True)}, bytes sent "
+            f"{json.dumps(prov['bytes_sent'], sort_keys=True)}; {card}")
+        for what, n in (("chunked", DAYS), ("prefix", DAYS // 2), ("resumed", DAYS - DAYS // 2)):
+            r, launches = res[what]
+            launched(launches, "interactions_compact", n, f"dist W=2 {what}, rank {rank}")
+            if what != "prefix":
+                same_study(studies[1], r, f"dist W=2 {what} rank {rank}")
+        r = res["resumed"][0]
+        if r.provenance["resumed_from_day"] != DAYS // 2 or \
+                res["chunked"][0].provenance["chunks"] != DAYS // CKPT_EVERY:
+            raise AssertionError(f"dist W=2 rank {rank}: provenance {r.provenance}")
+        log(f"[mesh] (d) api.run B=1 dist W=2, rank {rank}: checkpointed every {CKPT_EVERY} "
+            f"days bitwise the unchunked study; a {DAYS // 2}-day prefix resumed to {DAYS} "
+            f"bitwise; launches {DAYS}, {DAYS // 2} + {DAYS - DAYS // 2}; run_wall_s "
+            f"{res['chunked'][0].provenance['run_wall_s']} (chunked); host build "
+            f"{res['chunked'][0].provenance['plan_build_s']:.2f} s (plan + tables); {card}")
+    # (d) the W = 2 prefix snapshot resumed under local (its resume key names
+    # the mesh, as the reference's does: resumed through run_chunked)
+    mgr = CheckpointManager(os.path.join(MESH_ROOT, "prefix-for-local"))
+    step = mgr.latest_valid_step()
+    key = mgr.manifest(step)["extra"]["resume_key"]
+    spec = study_spec(1)
+    obs = obs_lib.make_observables(spec.observables)
+    ctx = obs_lib.ObsContext(num_people=P, num_scenarios=1, device="cuda")
+    core = EngineCore(pop, spec.build_batch(), block_size=BLOCK, device="cuda")
+    _kernel_counts(reset=True)
+    _, hist, _, _, resumed, _ = core_lib.run_chunked(
+        core_lib.CoreDriver(core, obs), DAYS, obs, ctx, manager=mgr, every=CKPT_EVERY,
+        resume_key=key)
+    launched(_kernel_counts(), "interactions_compact", DAYS - step, "W=2 snapshot under local")
+    for k, v in hist.items():
+        if resumed != DAYS // 2 or not np.array_equal(v, studies[1].history[k]):
+            raise AssertionError(f"W=2 snapshot resumed under local: '{k}' differs "
+                                 f"(resumed from {resumed})")
+    log(f"[mesh] (d) the W=2 snapshot of day {step} resumed under local to day {DAYS}: "
+        f"bitwise the unchunked study; {DAYS - step} launches")
+
+    # (c) four ranks sharing the card, hybrid 2 x 2
+    stamp("mesh (c): four ranks over gloo, hybrid 2 x 2")
+    t0 = time.perf_counter()
+    four = spawn(_rank_four, 4, "gloo")
+    log(f"[mesh] (c) spawn of 4 ranks: {time.perf_counter() - t0:.1f} s")
+    for rank, res in enumerate(four):
+        r, launches = res["hybrid"]
+        launched(launches, "interactions_compact", days, f"hybrid 2x2 rank {rank}")
+        same_study(studies[8], r, f"hybrid 2x2 rank {rank} against phase 4d's B=8")
+        prov = r.provenance
+        log(f"[mesh] (c) api.run B=8 hybrid 2x2, rank {rank}: every column and observable "
+            f"bitwise phase 4d's; {days} launches (B=4 a day, half the people); "
+            f"run_wall_s={prov['run_wall_s']} -> {1e3 * prov['run_wall_s'] / days:.3f} ms/day; "
+            f"host build {prov['plan_build_s']:.2f} s (plan + tables); collectives "
+            f"{json.dumps(prov['collectives'], sort_keys=True)}, bytes sent "
+            f"{json.dumps(prov['bytes_sent'], sort_keys=True)}; {card}")
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    return total
+
+
 def spec_bucket(spec, server):
     """The BucketKey a spec lands in on ``server``."""
     from repro_torch.serve import bucketize
@@ -1752,6 +2046,13 @@ def main() -> int:
     stamp("simulation server")
     served_launches = served_phase(pop, epi, cores, wrappers, card)
 
+    # ---- phase 4g: meshes ---------------------------------------------------
+    stamp("meshes")
+    local = {("none", "pallas-compact"): (final1, hist1), ("none", "pallas"): (final_p, hist_p),
+             ("tti", "pallas-compact"): tti["pallas-compact"][:2],
+             ("tti", "pallas"): tti["pallas"][:2]}
+    mesh_launches = mesh_phase(pop, wrappers, local, studies, card)
+
     # ---- phase 5: reference on a small input ------------------------------
     stamp("reference")
     torch.use_deterministic_algorithms(False)
@@ -1799,6 +2100,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": main_launches[kname],
             "served_launches": served_launches[kname],
+            "mesh_launches": mesh_launches[kname],
             "max_abs_err": max(rec["max_abs_err"],
                                *(r["max_abs_err"] for r in records[kname].values())),
             "ms": rec["ms"],

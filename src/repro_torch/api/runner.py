@@ -6,21 +6,29 @@ The facade derives the engine from the spec's batch size and mesh shape
 :mod:`repro_torch.engine`:
 
   =========  =========================  ==================================
-  engine     selected when              in the port
+  engine     selected when              engine-core placement
   =========  =========================  ==================================
-  single     B == 1, workers == 1       ``EngineCore`` on one device
-  ensemble   B > 1, 1x1 mesh            ``EngineCore`` on one device
-  dist       B == 1, workers > 1        ROADMAP queue 1 item 4: raises
-  sharded    B > 1, scenarios > 1       ROADMAP queue 1 item 4: raises
-  hybrid     B > 1, workers > 1         ROADMAP queue 1 item 4: raises
+  single     B == 1, workers == 1       ``EngineCore(layout="local")``
+  ensemble   B > 1, 1x1 mesh            ``EngineCore(layout="local")``
+  dist       B == 1, workers > 1        ``EngineCore(layout="workers")``
+  sharded    B > 1, scenarios > 1       ``EngineCore(layout="scenarios")``
+  hybrid     B > 1, workers > 1         ``EngineCore(layout="hybrid")``
   =========  =========================  ==================================
 
-``single`` and ``ensemble`` run the same batched day loop; the whole batch
-goes through one day step and one interaction-kernel launch a day, with the
-observables' updates inside the loop. A pinned ``single`` engine with B > 1
-runs the scenarios one after another and replays the observables after the
-run (bitwise equal inside the port). Histories are day-major with a
-scenario axis: every array is ``(days, B)``, B = 1 included.
+Every layout runs the same batched day loop; the whole batch (on a mesh,
+this rank's shard of it) goes through one day step and one
+interaction-kernel launch a day, with the observables' updates inside the
+loop, and every layout's results are bitwise the local one's. A pinned
+``single`` or ``dist`` engine with B > 1 runs the scenarios one after
+another and replays the observables after the run (bitwise equal inside
+the port). Histories are day-major with a scenario axis: every array is
+``(days, B)``, B = 1 included.
+
+The mesh engines run SPMD: every rank of an initialised process group of
+world size ``mesh.workers x mesh.scenarios`` (``dist``: ``workers``;
+``sharded``: ``scenarios``) calls ``run(spec)`` and gets the same
+:class:`RunResult`; ``repro_torch.launch.mesh.spawn`` or ``torchrun``
+starts the ranks, and ``run`` outside such a group raises.
 
 With ``checkpoint.directory`` the run goes in ``checkpoint.every``-day
 chunks with a snapshot at each boundary, and resumes bitwise from the
@@ -39,6 +47,7 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.analysis.report import summarize_sweep
 from repro_torch.api import observables as obs_lib
@@ -47,9 +56,12 @@ from repro_torch.api.spec import ROUTES, ExperimentSpec
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_epidemic
 from repro_torch.engine import core as engine_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.runtime import resilience as resilience_lib
 
-_UNPORTED_ENGINES = ("dist", "sharded", "hybrid")
+#: The engine-core layout of each engine.
+LAYOUTS = {"single": "local", "ensemble": "local", "dist": "workers",
+           "sharded": "scenarios", "hybrid": "hybrid"}
 
 
 def _resume_key(spec: ExperimentSpec, engine: str, device) -> dict:
@@ -84,13 +96,31 @@ def _resolve_engine(spec: ExperimentSpec, B: int) -> str:
     return "single"
 
 
-def _check_ported(engine: str) -> None:
-    """Raise, naming the ROADMAP item, for an engine the port does not run yet."""
-    if engine in _UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine '{engine}' is not ported: the port runs 'single' and "
-            "'ensemble' on one device; meshes are ROADMAP queue 1 item 4 "
-            "(multiple GPUs)")
+def mesh_ranks(spec: ExperimentSpec) -> int:
+    """The ranks (processes) ``spec`` runs on: 1 for the one-device engines,
+    the mesh's size for ``dist`` (workers), ``sharded`` (scenarios) and
+    ``hybrid`` (both)."""
+    layout = LAYOUTS[_resolve_engine(spec, spec.num_scenarios)]
+    return ((spec.mesh.workers if layout in ("workers", "hybrid") else 1)
+            * (spec.mesh.scenarios if layout in ("scenarios", "hybrid") else 1))
+
+
+def _make_mesh(engine: str, spec: ExperimentSpec):
+    """The engine's process mesh over the initialised group (None for the
+    one-device engines); raises, naming ``spawn`` and ``torchrun``, outside a
+    group of the mesh's size."""
+    layout = LAYOUTS[engine]
+    W = spec.mesh.workers if layout in ("workers", "hybrid") else 1
+    S = spec.mesh.scenarios if layout in ("scenarios", "hybrid") else 1
+    if layout == "local":
+        return None
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != W * S:
+        raise mesh_lib.no_group_error(W, S)
+    if layout == "workers":
+        return mesh_lib.make_worker_mesh(W)
+    if layout == "scenarios":
+        return mesh_lib.make_scenario_mesh(S)
+    return mesh_lib.make_hybrid_mesh(W, S)
 
 
 def _sweep_axes(spec: ExperimentSpec, B: int) -> tuple:
@@ -117,7 +147,9 @@ def _sweep_axes(spec: ExperimentSpec, B: int) -> tuple:
 def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
         on_straggler=None) -> RunResult:
     """Execute an :class:`ExperimentSpec` end to end on ``device`` (the card
-    unless ``device="cpu"`` is asked for; without a card, an error).
+    unless ``device="cpu"`` is asked for; without a card, an error). A mesh
+    spec runs on every rank of an initialised process group of the mesh's
+    size, each rank on its ``device`` (the module's docstring).
     ``population=`` substitutes a prebuilt Population for ``spec.dataset``
     (tests reuse one build).
 
@@ -130,20 +162,23 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
     device = engine_lib.resolve_device(device)
     B = spec.num_scenarios
     engine = _resolve_engine(spec, B)
-    _check_ported(engine)
+    mesh = _make_mesh(engine, spec)
     pop = population if population is not None else get_epidemic(spec.dataset).build()
     batch = spec.build_batch()
     observables = obs_lib.make_observables(spec.observables)
     ctx = obs_lib.ObsContext(num_people=pop.num_people, num_scenarios=B,
                              sweep_axes=_sweep_axes(spec, B), device=str(device))
-    # A pinned single engine with B > 1 runs the scenarios one at a time;
-    # cross-scenario reductions then replay after the run.
-    in_scan = not (engine == "single" and B > 1)
+    # A pinned single or dist engine with B > 1 runs the scenarios one at a
+    # time; cross-scenario reductions then replay after the run.
+    in_scan = not (engine in ("single", "dist") and B > 1)
     built = {}  # the most recently built core (provenance below)
 
     def build_driver():
-        core = engine_lib.EngineCore(pop, batch, block_size=spec.block_size,
-                                     device=device, backend=ROUTES[spec.backend])
+        # a rebuild (the recovery policy's) reuses the first core's plan
+        plan = built["core"].plan if "core" in built else None
+        core = engine_lib.EngineCore(pop, batch, layout=LAYOUTS[engine], mesh=mesh,
+                                     plan=plan, block_size=spec.block_size, device=device,
+                                     backend=ROUTES[spec.backend])
         built["core"] = core
         if in_scan:
             return engine_lib.CoreDriver(core, observables)
@@ -155,10 +190,10 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
 
     def make_driver(workers=None):
         """The chunk driver: the one built above, then a rebuild on each
-        call — the rebuild seam of the recovery policy. The port runs one
-        worker, so ``workers`` is always 1 here: run_resilient asks for
-        fewer only after a device loss, which it re-raises on one worker
-        (elastic shrink waits for meshes, ROADMAP queue 1 item 4)."""
+        call (on the same mesh) — the rebuild seam of the recovery policy.
+        ``workers`` is the mesh's own count here: run_resilient asks for
+        fewer only after a device loss, which it re-raises (elastic shrink
+        of a mesh is ROADMAP queue 1 item 8)."""
         return first.pop() if first else build_driver()
 
     ck = spec.checkpoint
@@ -207,7 +242,8 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
         "topology": type(core.topo).__name__,
         "num_people": int(pop.num_people),
         "mesh": {"workers": spec.mesh.workers, "scenarios": spec.mesh.scenarios},
-        "num_devices": 1,
+        "num_devices": 1 if mesh is None else mesh.size,  # ranks (they may share a card)
+        "dist_backend": None if mesh is None else mesh.backend,
         "jax_backend": str(device),  # the reference's key: here the torch device
         "route": core.static.backend,  # the interaction pass that ran
         "wall_s": round(time.time() - t0, 3),  # end to end, incl. pop build
@@ -218,6 +254,12 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
         "observables_in_scan": in_scan,
         "core": engine_lib.CORE_VERSION,
     }
+    if mesh is not None:
+        # this rank's host build (plan and tables, or the week), its
+        # collectives over the run by kind, and the bytes it sent
+        provenance["plan_build_s"] = round(core.plan_build_s, 3)
+        provenance["collectives"] = dict(core.topo.counts)
+        provenance["bytes_sent"] = dict(core.topo.bytes_sent)
     if report is not None:
         # what recovery did: restarts, chunks replayed, snapshots
         # quarantined, straggler/device-loss events, final layout

@@ -43,8 +43,9 @@ ROUTES = {"jnp": "pallas-compact", "scan": "pallas-compact",
 class MeshSpec:
     """Device-mesh shape. ``workers`` shards people/locations of each
     scenario; ``scenarios`` shards the batch axis. (1, 1) means a single
-    device; both >1 selects the hybrid 2-D engine. The port runs (1, 1)
-    only; the meshes are ROADMAP queue 1 item 4."""
+    device; both >1 selects the hybrid 2-D engine. A mesh runs one process
+    per rank (``repro_torch.launch.mesh.spawn`` or ``torchrun``), every rank
+    calling ``api.run`` with the same spec."""
 
     workers: int = 1
     scenarios: int = 1
@@ -72,8 +73,9 @@ class ResilienceSpec:
     ``checkpoint.directory``): capped, backed-off restarts from the newest
     *valid* snapshot (corrupt ones are quarantined), a post-chunk invariant
     pack treated as a fault on violation, per-chunk straggler detection,
-    and elastic shrink onto fewer workers on device loss (the port runs one
-    worker, so a device loss re-raises; meshes are ROADMAP queue 1 item 4).
+    and, in the reference, elastic shrink onto fewer workers on device loss
+    (in the port a device loss re-raises, on a mesh naming its ROADMAP
+    item).
     Pure policy — it never changes the science, so it is not part of the
     checkpoint resume key and recovered runs are bitwise-equal to
     uninterrupted ones."""

@@ -6,10 +6,16 @@ everything around it, as the reference's ``repro.engine.core`` does:
   * **building** — one path compiles a :class:`ScenarioBatch` into stacked
     ``SimParams``/``SimState`` (leading scenario axis B, B = 1 included)
     plus the week's device arrays the step consumes;
-  * **placement** — the ``local`` layout: the whole batch on one device,
-    every op of the day over ``(B, ...)`` and one interaction-kernel launch
-    a day. The reference's mesh layouts (``workers``, ``scenarios``,
-    ``hybrid``) are ROADMAP queue 1 item 4;
+  * **placement** — four layouts, four topologies (``engine/topology.py``):
+    ``local``, the whole batch on one device, every op of the day over
+    ``(B, ...)`` and one interaction-kernel launch a day; and on a process
+    mesh (``launch/mesh.py``), ``workers`` (each scenario's people and
+    locations split over W ranks by the reference's partition,
+    ``core/simulator_dist.py``), ``scenarios`` (the batch split over S
+    ranks) and ``hybrid`` (both). Every rank builds the same plan, keeps
+    only its shard of the params, the state and the week, and launches the
+    interaction kernel once a day for its shard of the batch; every layout
+    is bitwise equal to ``local``;
   * **warm runners** — :meth:`EngineCore.runner_fn` is the reference's
     compile-once seam: one :class:`~repro_torch.engine.runner.DayRunner`
     per ``(days, observables)`` key in a :class:`BoundedLRU`, on the card
@@ -26,10 +32,21 @@ everything around it, as the reference's ``repro.engine.core`` does:
     loop.
 
 Scenario padding is *inert*: :func:`pad_batch` fills a batch with copies of
-its last scenario, and :func:`no_op_params` gives them zero betas, zero
-seeding and every intervention slot disabled, so nobody is seeded or
-infected there and their live-tile count is 0. Padded slots come last and
-are sliced off before any history or observable sees them.
+its last scenario (to a multiple of the scenario shards), and
+:func:`no_op_params` gives them zero betas, zero seeding and every
+intervention slot disabled, so nobody is seeded or infected there and their
+live-tile count is 0. Padded slots come last and are sliced off before any
+history or observable sees them.
+
+On a mesh, :meth:`EngineCore.run_days` takes and returns this rank's shard
+of the state and the whole batch's history (every rank the same);
+:meth:`EngineCore.shard_state` and :meth:`EngineCore.gather_state` move
+between a shard and the whole state (real scenarios, the person axis padded
+to ``W * Pw``), which is what the chunk loop carries, checkpoints and
+restores: rank 0 writes a snapshot, the other ranks wait at a barrier, and
+every rank takes its shard of a restored one (``adopt_state`` re-pads a
+person axis written for another worker count, so a checkpoint moves between
+layouts).
 
 The device defaults to ``"cuda"`` and a missing card is an error, never a
 silent fall back to the CPU; tests pass ``device="cpu"``. ``backend`` picks
@@ -45,20 +62,29 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointCorruptionError
 from repro_torch.configs.sweep import Scenario, ScenarioBatch
 from repro_torch.core import interactions as inter_lib
+from repro_torch.core import interventions as iv_lib
 from repro_torch.core import population as pop_lib
 from repro_torch.core import simulator as sim_lib
+from repro_torch.core import simulator_dist as sd
 from repro_torch.core import transmission as tx_lib
 from repro_torch.engine import day as day_lib
 from repro_torch.engine.cache import BoundedLRU
 from repro_torch.engine.runner import DayRunner
-from repro_torch.engine.topology import LocalTopology
+from repro_torch.engine.topology import make_topology
 from repro_torch.kernels.interactions import ops as iops
+from repro_torch.launch import mesh as mesh_lib
 
-LAYOUTS = ("local",)
+LAYOUTS = ("local", "workers", "scenarios", "hybrid")
+#: The mesh axes each layout shards (the reference's mesh axis names).
+LAYOUT_AXES = {"local": (), "workers": ("workers",), "scenarios": ("scenarios",),
+               "hybrid": ("workers", "scenarios")}
+#: SimParams / IvParams fields with a person axis (last).
+PERSON_PARAM_FIELDS = ("beta_sus", "beta_inf", "people", "pa_people")
 
 #: Engine-core generation marker (the reference's, for the same history
 #: keys and state fields): part of every resume key, beside the package's
@@ -86,11 +112,13 @@ def state_to_tree(state: sim_lib.SimState) -> dict:
     return {f: getattr(state, f) for f in _STATE_FIELDS}
 
 
-def state_from_flat(flat: dict, template: sim_lib.SimState) -> sim_lib.SimState:
+def state_from_flat(flat: dict, template: sim_lib.SimState,
+                    num_people: Optional[int] = None) -> sim_lib.SimState:
     """The ``state/<field>`` leaves of a checkpoint as a SimState on
-    ``template``'s device (an ``EngineCore.init_state()``). Every leaf must
-    have the template's dtype and shape — except that a person axis may be
-    longer (padded for more workers; ``EngineCore.adopt_state`` re-pads it)
+    ``template``'s device (an ``EngineCore.full_init_state()``). Every leaf
+    must have the template's dtype and shape — except that a person axis may
+    have another length of at least ``num_people`` (default: the template's;
+    padded for another worker count; ``EngineCore.adopt_state`` re-pads it)
     — or :class:`CheckpointCorruptionError` is raised: nothing is cast."""
     out = {}
     for f in _STATE_FIELDS:
@@ -102,8 +130,9 @@ def state_from_flat(flat: dict, template: sim_lib.SimState) -> sim_lib.SimState:
             raise CheckpointCorruptionError(
                 f"leaf '{key}' has dtype {t.dtype}, the engine's state has {like.dtype}")
         person = f in PERSON_STATE_FIELDS and t.dim() == like.dim() >= 1
+        least = like.shape[-1] if num_people is None else num_people
         if not (t.shape == like.shape or person and t.shape[:-1] == like.shape[:-1]
-                and t.shape[-1] >= like.shape[-1]):
+                and t.shape[-1] >= least):
             raise CheckpointCorruptionError(
                 f"leaf '{key}' has shape {tuple(t.shape)}, the engine's state has "
                 f"{tuple(like.shape)}")
@@ -238,16 +267,35 @@ def index_params(batched, i: int):
 
 
 class EngineCore:
-    """One ScenarioBatch on one device, ready to run.
+    """One ScenarioBatch placed on one device or a process mesh, ready to run.
 
-    ``layout`` is ``"local"``: the batch's B scenarios run as one batched
-    day loop on ``device`` (single runs are B = 1).
+    ``layout`` picks the placement (the reference's four):
+
+      * ``"local"`` — the batch's B scenarios as one batched day loop on
+        ``device`` (single runs are B = 1);
+      * ``"workers"`` — each scenario's people and locations split over the
+        mesh's W workers;
+      * ``"scenarios"`` — the batch split over the mesh's S shards;
+      * ``"hybrid"`` — both, on a ``W x S`` mesh.
+
+    A mesh layout runs on every rank of an initialised process group: pass
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.WorkerMesh` with the
+    layout's axes) or let the core make one over the whole group
+    (``workers`` / ``scen_shards``, default: the world size; ``workers`` for
+    ``hybrid``). Outside a fitting group it raises, naming
+    ``repro_torch.launch.mesh.spawn`` and ``torchrun``. The people and
+    locations are split by the paper's load-balanced location partition;
+    ``plan`` passes a :class:`~repro_torch.core.simulator_dist.DistPlan`
+    already built for this population and worker count (cores of one
+    population share it). ``plan_build_s`` is the host seconds this rank
+    spent on the plan and its tables.
 
     ``max_runners`` bounds the warm runners held (one per ``(days,
     observables)`` key, LRU-evicted beyond it; ``None`` = unbounded).
-    ``max_seed_per_day`` is the reference's static seeding top-k width:
-    accepted and ignored, as the reference's local topology ignores it
-    (the seeding threshold is a full sort)."""
+    ``max_seed_per_day`` is the reference's static seeding top-k width: the
+    candidates each worker contributes to the seeding threshold (default:
+    the batch's largest ``seed_per_day``); the local layout sorts and does
+    not need it."""
 
     def __init__(
         self,
@@ -255,6 +303,10 @@ class EngineCore:
         batch: Union[ScenarioBatch, Sequence[Scenario]],
         *,
         layout: str = "local",
+        mesh=None,
+        workers: Optional[int] = None,
+        scen_shards: Optional[int] = None,
+        plan: Optional[sd.DistPlan] = None,
         block_size: int = 128,
         device="cuda",
         backend: str = "pallas-compact",
@@ -262,28 +314,56 @@ class EngineCore:
         max_runners: Optional[int] = 8,
     ):
         if layout not in LAYOUTS:
-            raise NotImplementedError(
-                f"layout '{layout}' is not ported: the port places a batch on "
-                "one device ('local'); the mesh layouts are ROADMAP queue 1 "
-                "item 4 (multiple GPUs)")
+            raise ValueError(f"layout must be one of {LAYOUTS}, got '{layout}'")
         iops.check_backend(backend)
         self.device = resolve_device(device)
         self.pop = pop
         self.batch = as_batch(batch)
         self.num_real = len(self.batch)
         self.layout = layout
-        self.workers = 1  # the person axis is one worker's (meshes: item 4)
-        self.scen_shards = 1  # the scenario axis is not sharded (item 4)
+        self.mesh = _resolve_mesh(layout, mesh, workers, scen_shards)
+        axes = LAYOUT_AXES[layout]
+        self.workers = self.mesh.workers if "workers" in axes else 1
+        self.scen_shards = self.mesh.scenarios if "scenarios" in axes else 1
         self.padded = pad_batch(self.batch, self.scen_shards)
         self.block_size = block_size
         self.max_seed_per_day = max_seed_per_day
         self.iv_slots, self.pa_slots, params_list = build_batch_params(
-            pop, self.batch, device=self.device)
-        self.params = stack_params(params_list)
-        self.week = local_week_arrays(
-            pop, inter_lib.build_week_data(pop, block_size), device=self.device
-        )
-        self.topo = LocalTopology()
+            pop, self.padded, device=self.device)
+        # Pad slots carry inert params: nothing is seeded or infected there.
+        for i in range(self.num_real, len(self.padded)):
+            params_list[i] = no_op_params(params_list[i])
+        t0 = time.perf_counter()
+        if "workers" in axes:
+            if plan is None:
+                plan = sd.build_dist_plan(pop, self.workers, block_size)
+            elif (plan.num_workers, plan.block_size, plan.num_people) != (
+                    self.workers, block_size, pop.num_people):
+                raise ValueError(
+                    f"plan for {plan.num_workers} workers, block {plan.block_size}, "
+                    f"{plan.num_people} people does not fit this core")
+            self.plan = plan
+            self.week = sd.week_device_arrays(self.plan, self.mesh.worker_index,
+                                              device=self.device)
+            params_list = [sd.pad_params(p, self.plan) for p in params_list]
+            self.people_per_worker = self.plan.people_per_worker
+        else:
+            self.plan = None
+            self.week = local_week_arrays(
+                pop, inter_lib.build_week_data(pop, block_size), device=self.device)
+            self.people_per_worker = pop.num_people
+        self.plan_build_s = time.perf_counter() - t0
+        self.params = self._shard(stack_params(params_list), PERSON_PARAM_FIELDS)
+        Pw = self.people_per_worker
+        max_spd = (max_seed_per_day if max_seed_per_day is not None
+                   else max(s.seed_per_day for s in self.padded))
+        # The test budget's per-worker candidates: the largest daily capacity
+        # any scenario asks for (MeshTopology.rank_threshold is exact as long
+        # as it covers min(budget, Pw)).
+        max_tests = max([iv.tests_per_day for s in self.padded for iv in s.interventions
+                         if isinstance(iv, iv_lib.TestTraceIsolate)] or [1])
+        self.topo = make_topology(self.mesh, seed_topk=max(1, min(int(max_spd), Pw)),
+                                  test_topk=max(1, min(int(max_tests), Pw)))
         self.static = day_lib.EngineStatic(
             num_people=pop.num_people,
             num_locations=pop.num_locations,
@@ -292,6 +372,7 @@ class EngineCore:
             pa_slots=self.pa_slots,
             backend=backend,
         )
+        self._full_init = None
         self._runners = BoundedLRU(max_entries=max_runners)
 
     @classmethod
@@ -311,8 +392,9 @@ class EngineCore:
         **core_kw,
     ) -> "EngineCore":
         """A one-scenario core in one call; ``core_kw`` passes the placement
-        fields (``block_size``, ``device``, ``backend``); pair with
-        :meth:`run1` for unbatched results."""
+        fields (``layout``, ``mesh``, ``workers``, ``block_size``,
+        ``device``, ``backend``, ...); pair with :meth:`run1` for unbatched
+        results."""
         scen = Scenario(
             name=name, disease=disease,
             tm=tm if tm is not None else tx_lib.TransmissionModel(),
@@ -323,31 +405,114 @@ class EngineCore:
         )
         return cls(pop, [scen], **core_kw)
 
+    # ------------------------------------------------------------------
+    # shards: this rank's slice of the scenario and person axes
+    # ------------------------------------------------------------------
+
+    def _shard(self, tree, person_fields):
+        """This rank's slice of a stacked dataclass over the padded batch:
+        its scenario slice, and its worker's people on ``person_fields``."""
+        if self.mesh is None:
+            return tree
+        Bs = len(self.padded) // self.scen_shards
+        s0 = self.mesh.scenario_index * Bs if self.scen_shards > 1 else 0
+        Pw = self.people_per_worker
+        p0 = self.mesh.worker_index * Pw if self.workers > 1 else 0
+
+        def cut(t, name):
+            t = t[s0:s0 + Bs]
+            return t[..., p0:p0 + Pw] if name in person_fields else t
+
+        def walk(obj):
+            return type(obj)(**{
+                f.name: walk(v) if dataclasses.is_dataclass(v) else cut(v, f.name)
+                for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)})
+
+        return walk(tree)
+
+    def full_init_state(self) -> sim_lib.SimState:
+        """The whole initial state: the real scenarios, the person axis padded
+        to ``W * Pw`` (pad people absorbing), on the core's device. On one
+        device, :meth:`init_state`."""
+        if self.mesh is None:
+            return self.init_state()
+        return index_params(self._padded_init(), slice(0, self.num_real))
+
+    def _padded_init(self) -> sim_lib.SimState:
+        """The initial state of every slot of the padded batch, on the whole
+        (worker-padded) person axis; built once."""
+        if self._full_init is None:
+            K = len(self.iv_slots)
+
+            def one(s):
+                if self.plan is None:
+                    return sim_lib.init_state(s.disease, self.pop.num_people, K,
+                                              device=self.device)
+                return sd.init_state_padded(s.disease, self.plan, K, device=self.device)
+
+            self._full_init = stack_params([one(s) for s in self.padded])
+        return self._full_init
+
     def init_state(self) -> sim_lib.SimState:
-        """The batch's stacked initial state on the core's device."""
-        return stack_params([
-            sim_lib.init_state(s.disease, self.pop.num_people, len(self.iv_slots),
-                               device=self.device)
-            for s in self.batch
-        ])
+        """This rank's shard of the initial state (the whole batch's on one
+        device), stacked, on the core's device."""
+        if self.mesh is None:
+            return stack_params([
+                sim_lib.init_state(s.disease, self.pop.num_people, len(self.iv_slots),
+                                   device=self.device)
+                for s in self.batch
+            ])
+        return self._shard(self._padded_init(), PERSON_STATE_FIELDS)
+
+    def shard_state(self, state: sim_lib.SimState) -> sim_lib.SimState:
+        """A whole state (real scenarios, or the padded batch; this core's
+        person axis) -> this rank's shard. Pad scenarios missing from
+        ``state`` start from the initial state at the batch's day (they are
+        inert and never surface). Identity on one device."""
+        if self.mesh is None:
+            return state
+        B, tmpl = state.day.shape[0], self._padded_init()
+        if self.scen_shards > 1 and B < len(self.padded):
+            day = state.day[:1].expand(len(self.padded) - B)
+            pad = dataclasses.replace(index_params(tmpl, slice(B, None)), day=day)
+            state = tree_map(lambda a, b: torch.cat([a, b]), state, pad)
+        return self._shard(state, PERSON_STATE_FIELDS)
+
+    def gather_state(self, shard: sim_lib.SimState) -> sim_lib.SimState:
+        """This rank's shard -> the whole state, real scenarios only, the same
+        on every rank (collectives over the mesh, counted by the topology).
+        Identity on one device."""
+        if self.mesh is None:
+            return shard
+        topo, m = self.topo, self.mesh
+
+        def gather(name, x):
+            if self.workers > 1 and name in PERSON_STATE_FIELDS:
+                x = topo.all_gather(x, m.worker_group, m.workers, dim=-1)
+            if self.scen_shards > 1:
+                x = topo.all_gather(x, m.scenario_group, m.scenarios, dim=0)
+            return x[:self.num_real]
+
+        return sim_lib.SimState(**{f: gather(f, getattr(shard, f)) for f in _STATE_FIELDS})
 
     def scenario_params(self, i: int) -> sim_lib.SimParams:
-        """Scenario ``i``'s un-stacked params."""
+        """Scenario ``i``'s un-stacked params (on a mesh: of this rank's
+        shard)."""
         return index_params(self.params, i)
 
     def adopt_state(self, state: sim_lib.SimState) -> sim_lib.SimState:
-        """Re-home a stacked SimState (possibly from another worker layout)
-        onto this core's person axis — the elastic-degradation seam. A
+        """Re-home a whole SimState (possibly from another worker layout) onto
+        this core's person axis, ``W * Pw`` — the elastic-degradation seam. A
         state already in this layout passes through untouched; person
-        leaves padded for W workers are repartitioned with
+        leaves padded for another worker count are repartitioned with
         :func:`repro_torch.runtime.elastic.repartition_person_array` (real
         people occupy the first ``num_people`` flat slots in every layout),
-        pad entries filled from :meth:`init_state`'s last person."""
+        pad entries filled from :meth:`full_init_state`'s last person."""
         from repro_torch.runtime.elastic import (
             plan_elastic_rescale, repartition_person_array,
         )
 
-        tmpl = self.init_state()
+        tmpl = self.full_init_state()
         P = self.pop.num_people
         new_layout = plan_elastic_rescale(P, self.workers, self.workers)[1]
         ppad_new = new_layout["workers"] * new_layout["per_worker"]
@@ -387,7 +552,7 @@ class EngineCore:
             return day_lib.run_days(topo, static, week, params, state, days,
                                     observables, carries, num_real)
 
-        runner = DayRunner(run, self.device)
+        runner = DayRunner(run, self.device, capture=self.mesh is None)
         self._runners.put(key, runner)
         return runner
 
@@ -397,7 +562,10 @@ class EngineCore:
         (final_state, carries, hist, dailies)`` over every slot of the
         batch, ``hist`` (days, len(STAT_KEYS), B) on the device. On the
         card its first call of a shape captures a CUDA graph and later calls
-        replay it. Public so the serving tier wraps the steady-state loop in
+        replay it. On a mesh layout it is the eager loop: a graph cannot
+        hold the day's ``torch.distributed`` collectives, so the serving tier
+        stays on the local layout. Public so the serving
+        tier wraps the steady-state loop in
         :class:`repro_torch.analysis.capture.recompile_sentinel` around the
         runner that actually runs."""
         return self._runner(days, tuple(observables))
@@ -438,12 +606,14 @@ class EngineCore:
         observables: tuple = (),
         carries: tuple = (),
     ):
-        """Run ``days`` days with no host sync. ``params``/``state`` (stacked)
-        substitute other same-structure ones, of any batch width.
+        """Run ``days`` days with no host sync. ``params``/``state`` (stacked;
+        on a mesh, this rank's shards) substitute other same-structure ones,
+        of any batch width.
 
         Returns ``(final_state, carries, hist, dailies)``, all on the
-        device: ``hist`` a (days, len(STAT_KEYS), B) int64 tensor over the
-        core's real scenarios (pad slots sliced off), ``carries``/``dailies``
+        device: ``final_state`` this rank's shard, ``hist`` a (days,
+        len(STAT_KEYS), B) int64 tensor over the core's real scenarios (pad
+        slots sliced off; the same on every rank), ``carries``/``dailies``
         the observables' reductions (:func:`repro_torch.engine.day.run_days`)."""
         final, carries, hist, dailies = day_lib.run_days(
             self.topo, self.static, self.week,
@@ -455,8 +625,12 @@ class EngineCore:
 
     def run(self, days: int, *, state=None, params=None):
         """``(final_state, hist)`` over the batch: ``hist`` maps STAT_KEYS to
-        host ``(days, B)`` arrays; pad slots dropped from both."""
-        final, _, hist, _ = self.run_days(days, state=state, params=params)
+        host ``(days, B)`` arrays; pad slots dropped from both. ``state`` and
+        the result are whole states (on a mesh: gathered, person axis padded
+        to ``W * Pw``); ``params`` this rank's shard, as ``self.params``."""
+        final, _, hist, _ = self.run_days(
+            days, state=None if state is None else self.shard_state(state), params=params)
+        final = self.gather_state(final)
         return index_params(final, slice(0, self.num_real)), hist_to_numpy(hist)
 
     def run1(
@@ -476,10 +650,54 @@ class EngineCore:
         return index_params(final, 0), {k: v[:, 0] for k, v in hist.items()}
 
     def init_state1(self) -> sim_lib.SimState:
-        """Unbatched initial state (B = 1 cores; pairs with :meth:`run1`)."""
+        """Unbatched whole initial state (B = 1 cores; pairs with
+        :meth:`run1`)."""
         if self.num_real != 1:
             raise ValueError("init_state1() needs a batch of exactly 1")
-        return index_params(self.init_state(), 0)
+        return index_params(self.full_init_state(), 0)
+
+    # ------------------------------------------------------------------
+    # the mesh's checkpoint roles
+    # ------------------------------------------------------------------
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank writes snapshots: rank 0 (the only rank on one
+        device)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def barrier(self, manager=None) -> None:
+        """Wait for every rank of the mesh, once ``manager``'s write in flight
+        (the writer's) is on disk. Nothing on one device."""
+        if self.mesh is not None:
+            if manager is not None:
+                manager.wait()
+            dist.barrier()
+
+
+def _resolve_mesh(layout: str, mesh, workers, scen_shards):
+    """The layout's :class:`~repro_torch.launch.mesh.WorkerMesh`: ``mesh`` if
+    given (its axes must be the layout's), else one made over the whole
+    process group. None for ``local``."""
+    axes = LAYOUT_AXES[layout]
+    if not axes:
+        if mesh is not None or (workers or 1) != 1 or (scen_shards or 1) != 1:
+            raise ValueError(f"the local layout takes no mesh, got mesh={mesh}, "
+                             f"workers={workers}, scen_shards={scen_shards}")
+        return None
+    if mesh is None:
+        if layout == "workers":
+            mesh = mesh_lib.make_worker_mesh(workers)
+        elif layout == "scenarios":
+            mesh = mesh_lib.make_scenario_mesh(scen_shards)
+        else:
+            if workers is None:
+                raise ValueError("the hybrid layout needs workers=")
+            mesh = mesh_lib.make_hybrid_mesh(workers, scen_shards)
+    if tuple(mesh.axis_names) != axes:
+        raise ValueError(f"layout '{layout}' expects mesh axes {axes}, "
+                         f"got {tuple(mesh.axis_names)}")
+    return mesh
 
 
 def hist_to_numpy(hist: torch.Tensor) -> dict:
@@ -533,9 +751,11 @@ def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
     one chunk.
 
     ``driver`` has ``init_state()``, ``run_chunk(n, state, carries) ->
-    (state, hist, carries, dailies)``, ``adapt_state(state)`` and an
-    ``in_scan`` flag (False for the sequential driver, whose observables
-    replay after the run). Observable carries are never checkpointed: on
+    (state, hist, carries, dailies)``, ``adapt_state(state)``, its ``core``
+    and an ``in_scan`` flag (False for the sequential driver, whose
+    observables replay after the run). The state it carries is the whole
+    state (``EngineCore.gather_state``), the same on every rank of a mesh,
+    so hooks decide alike everywhere; rank 0 writes the snapshots. Observable carries are never checkpointed: on
     resume the pure updates replay over the restored history, which gives
     the carries bitwise (``api/observables.py:scan_history``).
 
@@ -543,8 +763,8 @@ def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
     (corrupt ones are quarantined by the manager); its resume key must
     equal ``resume_key`` and its day must not pass ``days``, or
     :class:`ResumeKeyError` is raised. The restored state has the dtype and
-    shape of ``driver.init_state()`` (:func:`state_from_flat`) and passes
-    through ``driver.adapt_state``.
+    shape of ``driver.init_state()``, up to its person axis
+    (:func:`state_from_flat`), and passes through ``driver.adapt_state``.
 
     ``hooks`` (see :mod:`repro_torch.runtime.resilience`) observes the loop
     at chunk granularity: ``on_start(state, day)``, ``before_chunk(day,
@@ -560,7 +780,15 @@ def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
 
     state, carries, hists, daily_chunks = None, None, [], []
     day, resumed_from = 0, None
-    step = manager.latest_valid_step() if manager is not None and resume else None
+    core = driver.core
+    step = None
+    if manager is not None and resume:
+        # On a mesh the writer verifies (and quarantines) first; the other
+        # ranks then read what it left, so all restore the same step.
+        step = manager.latest_valid_step() if core.is_writer else None
+        core.barrier()
+        if not core.is_writer:
+            step = manager.latest_valid_step(quarantine=False)
     if step is not None:
         if step > days:
             raise ResumeKeyError(
@@ -578,7 +806,8 @@ def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
                 "checkpoint.directory elsewhere or set "
                 "checkpoint.resume=false")
         flat = manager.restore_flat(step)
-        state = driver.adapt_state(state_from_flat(flat, driver.init_state()))
+        state = driver.adapt_state(
+            state_from_flat(flat, driver.init_state(), core.pop.num_people))
         hists = [_hist_from_flat(flat, step)]
         if driver.in_scan:
             # Replay the pure reductions over the restored history so the
@@ -613,12 +842,15 @@ def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
         if manager is not None:
             # Each boundary rewrites the full history-so-far (a few int64s
             # per scenario-day) beside the state, so the newest snapshot
-            # alone restores the run. save() copies to the host here.
-            manager.save(day, {
-                "day": np.asarray(day, np.int32),
-                "state": state_to_tree(state),
-                "hist": concat_hists(hists),
-            }, extra={"resume_key": resume_key})
+            # alone restores the run. save() copies to the host here. On a
+            # mesh rank 0 writes the whole state and the others wait.
+            if core.is_writer:
+                manager.save(day, {
+                    "day": np.asarray(day, np.int32),
+                    "state": state_to_tree(state),
+                    "hist": concat_hists(hists),
+                }, extra={"resume_key": resume_key})
+            core.barrier(manager)
             if hooks is not None:
                 hooks.after_save(day)
     if manager is not None:
@@ -640,7 +872,7 @@ class CoreDriver:
         self.observables = tuple(observables)
 
     def init_state(self):
-        return self.core.init_state()
+        return self.core.full_init_state()
 
     def adapt_state(self, state):
         return self.core.adopt_state(state)
@@ -648,11 +880,13 @@ class CoreDriver:
     def run_chunk(self, n, state, carries):
         from repro_torch.api import observables as obs_lib  # cycle-free at call time
 
-        state, carries, hist, dailies = self.core.run_days(
-            n, state=state, observables=self.observables, carries=carries)
+        core = self.core
+        shard, carries, hist, dailies = core.run_days(
+            n, state=core.shard_state(state), observables=self.observables,
+            carries=carries)
         # The history's host copy ends the chunk: a chunk's wall time
         # (run_chunked's dt) includes the device's work.
-        return (state, hist_to_numpy(hist), carries,
+        return (core.gather_state(shard), hist_to_numpy(hist), carries,
                 obs_lib.observables_to_numpy(dailies))
 
 
@@ -671,17 +905,17 @@ class SequentialDriver:
         ]
 
     def init_state(self):
-        return self.core.init_state()
+        return self.core.full_init_state()
 
     def adapt_state(self, state):
         return self.core.adopt_state(state)
 
     def run_chunk(self, n, state, carries):
-        finals, hists = [], []
+        core, finals, hists = self.core, [], []
         for i, params_i in enumerate(self.params_list):
-            state_i = index_params(state, slice(i, i + 1))
-            f, _, h, _ = self.core.run_days(n, params=params_i, state=state_i)
-            finals.append(f)
+            state_i = core.shard_state(index_params(state, slice(i, i + 1)))
+            f, _, h, _ = core.run_days(n, params=params_i, state=state_i)
+            finals.append(core.gather_state(f))
             hists.append(h)
         # pad slots (if any) never run here; they keep their rows
         finals.append(index_params(state, slice(len(self.params_list), None)))

@@ -1,4 +1,4 @@
-"""The epidemic day loop (Algorithm 2) on the local topology, for a batch.
+"""The epidemic day loop (Algorithm 2) on a topology, for a batch.
 
 :func:`day_step` is one day of B scenarios at once: visits -> interactions
 -> update, in the reference's order (``repro/engine/day.py:day_step``,
@@ -19,6 +19,14 @@ kernel launch for all B scenarios:
   5. infection draws and outbreak seeding;
   6. the FSA health update and the per-agent state advance;
   7. the ``STAT_KEYS`` reductions, (B,) each, and trigger evaluation.
+
+On a mesh (``engine/topology.py``) the step runs on this rank's shard: its
+``Pw`` people (the state's person axis; global ids from ``topo.gpid``), its
+workers' visits and the exchange tables of its week, and its slice of the
+batch; the exchange, the order statistics, the day's sums and the gather
+of the statistics are the topology's collectives, and the arithmetic per
+person and per visit is the local layout's, so every layout gives bitwise
+the local run.
 
 The scenarios of a batch advance in lockstep (the core starts them all on
 day 0), so the day's visit schedule is read once, at scenario 0's day, and
@@ -47,7 +55,6 @@ from repro_torch.core import population as pop_lib
 from repro_torch.core import rng
 from repro_torch.core import simulator as sim_lib
 from repro_torch.core import transmission as tx_lib
-from repro_torch.engine.topology import LocalTopology
 from repro_torch.kernels.interactions import ops as iops
 
 STAT_KEYS = sim_lib.STAT_KEYS
@@ -87,21 +94,23 @@ def _look(table, idx):
     return table.gather(1, idx.long())
 
 
-def exposure(topo: LocalTopology, static: EngineStatic, week: dict,
+def exposure(topo, static: EngineStatic, week: dict,
              params: sim_lib.SimParams, state: sim_lib.SimState) -> Exposure:
     """Phases 1-4 of a day: interventions, the testing budget, dispatch,
     the interaction pass and the exposure combine."""
     P = static.num_people
+    Pw = state.health.shape[-1]  # this shard's people (P on one worker)
     day = state.day  # (B,), one value: the batch advances in lockstep
     dow = (day[:1] % pop_lib.DAYS_PER_WEEK)
     take = lambda k: week[k].index_select(0, dow)[0]
     pid, loc = take("pid"), take("loc")
+    route = topo.day_route(take)
     seed_w, day_w = params.seed[:, None], day[:, None]  # hash words (B, 1)
 
     # ---- interventions + per-person epidemiological channels -----------
     visit_ok, loc_open, sus_mult, inf_mult, vaccinated = iv_lib.apply_iv_params(
         static.iv_slots, params.iv, state.iv_active, state.vaccinated,
-        P, static.num_locations,
+        Pw, static.num_locations,
     )
 
     # ---- per-agent interventions: isolation and the testing budget -------
@@ -109,7 +118,7 @@ def exposure(topo: LocalTopology, static: EngineStatic, week: dict,
     tracing_on = any(ps.trace for ps in static.pa_slots)
     ex = {}
     if static.pa_slots:
-        gpid = torch.arange(P, dtype=torch.int64, device=day.device)
+        gpid = topo.gpid(Pw, day.device)
         in_iso = day_w < state.isolated_until
         visit_ok = visit_ok & ~in_iso
         sym = _look(params.sym_table, state.health) > 0.0
@@ -144,7 +153,7 @@ def exposure(topo: LocalTopology, static: EngineStatic, week: dict,
     person_chans = [person_sus, person_inf, visit_ok.to(torch.float32)]
     if tracing_on:
         person_chans.append(positives.to(torch.float32))
-    visit_vals = topo.dispatch(pid, torch.stack(person_chans, dim=-1))  # (B, V, ch)
+    visit_vals = topo.dispatch(pid, torch.stack(person_chans, dim=-1), route)  # (B, V, ch)
     sus_v, inf_v, ok_v = visit_vals[..., 0], visit_vals[..., 1], visit_vals[..., 2]
     open_v = loc_open[:, loc.clamp(max=static.num_locations - 1)]
     active = (pid >= 0) & (ok_v > 0.0) & open_v
@@ -161,7 +170,6 @@ def exposure(topo: LocalTopology, static: EngineStatic, week: dict,
             take("row"), take("col"), take("rs"), take("pa"),
             iops.col_has_infectious(inf_v, eff_pid, nb, b),
             iops.row_has_susceptible(sus_v, eff_pid, nb, b), meta)
-    slots = take("slots")
     tau = params.tau_eff[:, None]
     if tracing_on:
         # Second accumulator: traced contacts ride the exposure tiles, and
@@ -170,13 +178,13 @@ def exposure(topo: LocalTopology, static: EngineStatic, week: dict,
             *args, backend=static.backend, block_size=b,
             src_val=visit_vals[..., 3] * active)
         combined = topo.combine_many(
-            slots, active, torch.stack([acc, trc.to(torch.float32)], dim=-1))
+            route, active, torch.stack([acc, trc.to(torch.float32)], dim=-1))
         A = combined[..., 0] * tau
         ex["trc_p"] = combined[..., 1]
     else:
         acc, cnt, edges = iops.interactions_auto_edges(
             *args, backend=static.backend, block_size=b)
-        A = topo.combine(slots, active, acc) * tau
+        A = topo.combine(route, active, acc) * tau
     return Exposure(A=A, cnt=cnt, edges=edges, vaccinated=vaccinated, **ex)
 
 
@@ -213,7 +221,7 @@ def advance_per_agent(static: EngineStatic, params: sim_lib.SimParams,
                  traced=newly_traced.sum(dim=-1)))
 
 
-def update(topo: LocalTopology, static: EngineStatic, params: sim_lib.SimParams,
+def update(topo, static: EngineStatic, params: sim_lib.SimParams,
            state: sim_lib.SimState, ex: Exposure):
     """Phases 5-7 of a day. Returns ``(new_state, stats)``, ``stats`` a dict
     of (B,) int64 tensors keyed by ``STAT_KEYS``."""
@@ -221,7 +229,7 @@ def update(topo: LocalTopology, static: EngineStatic, params: sim_lib.SimParams,
     day = state.day
     seed_w, day_w = params.seed[:, None], day[:, None]
     A = ex.A
-    gpid = torch.arange(P, dtype=torch.int64, device=A.device)
+    gpid = topo.gpid(A.shape[-1], A.device)
     infected = tx_lib.sample_infections(A, seed_w, day_w, gpid)
 
     # Outbreak seeding; both branches of the reference's lax.cond are
@@ -241,19 +249,22 @@ def update(topo: LocalTopology, static: EngineStatic, params: sim_lib.SimParams,
     tested, traced, isolated_until, pa_stats = advance_per_agent(
         static, params, state, ex)
 
-    # ---- reductions (Algorithm 2 line 34), int64 throughout ---------------
-    new_count = new_mask.sum(dim=-1)
-    cumulative = state.cumulative + new_count
-    stats = {
-        "day": day,
-        "new_infections": new_count,
-        "cumulative": cumulative,
+    # ---- reductions (Algorithm 2 line 34), int64 throughout, summed over
+    # the workers in one psum ------------------------------------------------
+    # Every sum is int64 (torch sums integers to int64; contacts says so), the
+    # widening DET004 asks for before a collective, which it reads only in
+    # JAX's ``.astype`` form.
+    # detlint: ignore[DET004]
+    sums = topo.psum({
+        "new_infections": new_mask.sum(dim=-1),
         "infectious": (_look(params.inf_table, health) > 0.0).sum(dim=-1),
         "susceptible": (_look(params.sus_table, health) > 0.0).sum(dim=-1),
         "contacts": ex.cnt.sum(dim=-1, dtype=torch.int64),
         "edges": ex.edges,
         **pa_stats,
-    }
+    })
+    cumulative = state.cumulative + sums["new_infections"]
+    stats = {"day": day, "cumulative": cumulative, **sums}
     iv_active = iv_lib.evaluate_iv_triggers(
         static.iv_slots, params.iv, day, stats, state.iv_active
     )
@@ -277,19 +288,22 @@ def run_days(topo, static, week, params, state, days: int, observables: tuple = 
     loop, as the reference runs them inside its scan
     (``repro/engine/day.py:run_days``).
 
-    ``params``/``state`` carry the leading scenario axis. The observables see
-    the first ``num_real`` scenarios each day (the real ones: pad slots, if
-    any, come last; all of them by default). Returns ``(final_state,
-    carries, hist, dailies)``: ``hist`` a (days, len(STAT_KEYS), B) int64
-    tensor on the run's device, ``dailies`` the observables' per-day outputs
-    stacked day-major (``api/observables.py:stack_days``)."""
+    ``params``/``state`` carry the leading scenario axis (on a scenario mesh,
+    this rank's slice of it). The observables see the first ``num_real``
+    scenarios of the whole batch each day (the real ones: pad slots, if any,
+    come last; all of them by default). Returns ``(final_state, carries,
+    hist, dailies)``: ``final_state`` this rank's shard, ``hist`` a (days,
+    len(STAT_KEYS), B) int64 tensor of the whole batch on the run's device,
+    ``dailies`` the observables' per-day outputs stacked day-major
+    (``api/observables.py:stack_days``)."""
     from repro_torch.api import observables as obs_lib  # cycle-free at call time
 
     rows, daily = [], []
     for _ in range(days):
         state, stats = day_step(topo, static, week, params, state)
-        rows.append(torch.stack([stats[k] for k in STAT_KEYS]))
-        real = {k: v[:num_real] for k, v in stats.items()}
+        # the whole batch's statistics (a gather when the batch is sharded)
+        rows.append(topo.scen_gather(torch.stack([stats[k] for k in STAT_KEYS])))
+        real = {k: rows[-1][i, :num_real] for i, k in enumerate(STAT_KEYS)}
         carries, d = obs_lib.update_all(observables, carries, real)
         daily.append(d)
     if not rows:

@@ -162,11 +162,14 @@ class _Eager:
 class DayRunner:
     """``fn(params, state, carries) -> (state, carries, hist, dailies)``,
     built once per input signature: captured on ``cuda``, eager on the
-    CPU (the module's docstring)."""
+    CPU (the module's docstring). With ``capture=False`` it is eager on the
+    card too: a mesh's day issues collectives over ``torch.distributed``,
+    which a CUDA graph cannot hold."""
 
-    def __init__(self, fn, device: torch.device):
+    def __init__(self, fn, device: torch.device, *, capture: bool = True):
         self.fn = fn
         self.device = torch.device(device)
+        self.capture = capture
         self._builds: dict = {}
 
     def cache_size(self) -> int:
@@ -192,7 +195,7 @@ class DayRunner:
                    for t in leaves):
                 raise ValueError(f"a runner on {self.device} takes tensors on that "
                                  "device only")
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and self.capture:
                 build = CapturedDays(self.fn, structure, leaves)
             else:
                 build = _Eager(self.fn, structure)

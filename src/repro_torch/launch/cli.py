@@ -11,14 +11,32 @@ Flag semantics with ``--spec``: the spec file is the base, and any flag the
 user actually passed overrides the corresponding spec field (all common
 flags default to ``None`` = "not given", so spec values survive untouched).
 Without ``--spec``, the driver's own defaults fill the gaps.
+
+A mesh spec (``--workers`` / ``--scenarios`` > 1) runs on
+``workers x scenarios`` ranks: started here with
+``repro_torch.launch.mesh.spawn`` over ``--backend-dist`` (``gloo`` by
+default, which also lets several ranks share one card; ``nccl`` on
+request), or, under ``torchrun``, the ranks torchrun started. Rank 0 prints
+and writes; the other ranks stay quiet.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
+
+import torch.distributed as dist
 
 from repro_torch.api.spec import BACKENDS, ENGINES, ExperimentSpec
 from repro_torch.configs.presets import DISEASES, INTERVENTION_PRESETS
+from repro_torch.launch import mesh as mesh_lib
+
+#: A CLI mesh's group timeout: ranks wait this long for each other at a
+#: collective (their host builds before the first day included); and the
+#: wall limit of the whole spawned study.
+MESH_TIMEOUT_S = 600.0
+MESH_WALL_S = 7 * 24 * 3600.0
 
 
 def add_common_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -66,6 +84,8 @@ def add_common_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                     help="write the RunResult JSON here")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; the CPU only on request)")
+    ap.add_argument("--backend-dist", default="gloo", choices=list(mesh_lib.BACKENDS),
+                    help="torch.distributed backend of a mesh's ranks (default gloo)")
     return ap
 
 
@@ -112,12 +132,34 @@ def parse_float_axis(csv: str, flag: str) -> tuple:
             f"error: {flag} must be comma-separated floats, got '{csv}'")
 
 
-def run(spec: ExperimentSpec, device: str):
-    """:func:`repro_torch.api.run` on ``device``, with what the port does not
-    run yet (an engine, a policy) reported as a CLI error."""
+def _rank_run(spec: ExperimentSpec, device: str):
+    """One rank of a spawned mesh: the study (every rank returns the same)."""
     from repro_torch import api
 
+    return api.run(spec, device=device)
+
+
+def run(spec: ExperimentSpec, device: str, backend_dist: str = "gloo"):
+    """:func:`repro_torch.api.run` on ``device``, on the ranks a mesh spec
+    needs: under torchrun, its ranks (their group joined over
+    ``backend_dist``), else ranks spawned here; what the port does not run
+    (a policy) is reported as a CLI error."""
+    from repro_torch.api import runner
+
+    ranks = runner.mesh_ranks(spec)
     try:
-        return api.run(spec, device=device)
+        if ranks > 1 and not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            mesh_lib.join_torchrun(backend_dist, device, timeout_s=MESH_TIMEOUT_S)
+        if ranks == 1 or dist.is_initialized():
+            return runner.run(spec, device=device)
+        return mesh_lib.spawn(_rank_run, ranks, backend=backend_dist, device=device,
+                              init_dir=tempfile.gettempdir(), args=(spec, device),
+                              timeout_s=MESH_TIMEOUT_S, wall_s=MESH_WALL_S,
+                              threads=max(1, (os.cpu_count() or 1) // ranks))[0]
     except NotImplementedError as e:
         raise SystemExit(f"error: {e}")
+
+
+def is_rank0() -> bool:
+    """Whether this process prints and writes: rank 0, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0

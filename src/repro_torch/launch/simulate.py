@@ -8,6 +8,8 @@
     PYTHONPATH=src python -m repro_torch.launch.simulate --spec examples/experiment.toml
     PYTHONPATH=src python -m repro_torch.launch.simulate --dataset twin-2k \
         --days 60 --ckpt-dir build/ckpt --ckpt-every 20 --resilient --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.simulate --dataset twin-2k \
+        --days 30 --workers 2 --device cpu
 
 The flags build (or, with ``--spec``, override) a declarative
 :class:`~repro_torch.api.ExperimentSpec`, as the reference's
@@ -16,7 +18,8 @@ The flags build (or, with ``--spec``, override) a declarative
 reference's fields. With ``--ckpt-dir`` the run is checkpointed every
 ``--ckpt-every`` days and resumes from the newest valid snapshot there
 (the last line's ``resumed_from_day``); ``--resilient`` adds the recovery
-policy and prints what it did.
+policy and prints what it did. ``--workers W`` runs the ``dist`` engine on
+W ranks (``launch/cli.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ def main(argv=None):
         name="simulate", days=100, interventions=("none",), replicates=1,
         backend="pallas-compact",
     ), **extra)
-    result = cli.run(spec, args.device)
+    result = cli.run(spec, args.device, args.backend_dist)
+    if not cli.is_rank0():
+        return
     prov = result.provenance
     print(f"dataset={result.spec.dataset} engine={prov['engine']} "
           f"device={prov['jax_backend']} backend={result.spec.backend} "

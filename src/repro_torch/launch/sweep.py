@@ -11,8 +11,11 @@ The flags build (or, with ``--spec``, override) a declarative
 tau x replicate seeds) expand to a ScenarioBatch; the facade runs it as the
 ensemble engine, the whole batch in one batched day loop on ``--device``,
 and this prints per-scenario attack-rate summaries plus ensemble throughput
-(TEPS x batch). The reference's multi-device sharding of the scenario axis
-is ROADMAP queue 1 item 4.
+(TEPS x batch). ``--scenarios S`` shards the batch over S ranks and
+``--workers W`` each scenario's people over W (``launch/cli.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.sweep --dataset twin-2k \
+        --days 12 --replicates 4 --scenarios 2 --device cpu
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ def main(argv=None):
         interventions=("none", "school-closure"), replicates=2,
     ), **extra)
 
-    result = cli.run(spec, args.device)
+    result = cli.run(spec, args.device, args.backend_dist)
+    if not cli.is_rank0():
+        return
     prov = result.provenance
     print(f"dataset={result.spec.dataset} engine={prov['engine']} "
           f"scenarios={result.num_scenarios} days={result.days} "

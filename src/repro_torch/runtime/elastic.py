@@ -6,8 +6,9 @@ run between person-sharded layouts is a pure host-side reshuffle:
 :func:`plan_elastic_rescale` gives the padded ``(W, Pw)`` layouts and
 :func:`repartition_person_array` moves the real people between them.
 Counter-based RNG makes the continued run bitwise identical to an
-uninterrupted one. The port places a batch on one device, so its layout has
-one worker (``EngineCore.adopt_state``); meshes are ROADMAP queue 1 item 4.
+uninterrupted one. ``EngineCore.adopt_state`` uses these to take a snapshot
+written on any worker count onto its own (a local run's one worker, or a
+mesh's W).
 """
 
 from __future__ import annotations

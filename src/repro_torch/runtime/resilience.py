@@ -21,10 +21,16 @@ study needs:
     chunk's history copy, so they time the device's work) feed a robust
     median/MAD outlier test; an outlier may trigger a rebuild of the
     driver at the next safe chunk boundary.
-  * **elastic degradation** — on device loss the driver is rebuilt on
-    fewer workers and the run continues from the newest snapshot. The port
-    runs one worker, so a device loss re-raises, as the reference does on
-    one worker; shrinking a mesh is ROADMAP queue 1 item 4.
+  * **elastic degradation** — the reference rebuilds the driver on fewer
+    workers after a device loss and continues from the newest snapshot. In
+    the port a device loss re-raises: on one worker as the reference does,
+    and on a mesh because a shrink needs a new process group of the
+    surviving ranks (ROADMAP queue 1 item 8); ``EngineCore.adopt_state``
+    already moves a snapshot between worker counts.
+
+On a mesh every rank runs this loop over the whole state, gathered (the
+same on every rank), so guards and chaos decide alike on every rank; rank 0
+writes and damages snapshots, the others wait for it.
 
 Everything is driven deterministically by :mod:`repro_torch.runtime.chaos`
 in tests; :class:`ResilienceReport` records what recovery did, for
@@ -190,7 +196,10 @@ def run_resilient(
     if policy.guards:
         guard = GuardContext(
             num_states=int(driver.core.params.sus_table.shape[-1]))
-    hooks = _ChunkHooks(policy, report, manager, guard, chaos, on_straggler)
+    # chaos damages snapshots where they are written: rank 0 of a mesh
+    writer = getattr(driver.core, "is_writer", True)
+    hooks = _ChunkHooks(policy, report, manager if writer else None, guard, chaos,
+                        on_straggler)
 
     restarts = 0
     while True:
@@ -220,6 +229,12 @@ def run_resilient(
             new_w = old_w - e.workers_lost
             if not policy.elastic or new_w < 1 or old_w <= 1:
                 raise
+            if getattr(driver.core, "mesh", None) is not None:
+                raise DeviceLossError(
+                    e.workers_lost,
+                    f"{e}: a device of a {old_w}-worker mesh was lost; elastic "
+                    "shrink onto the surviving ranks is ROADMAP queue 1 item 8 "
+                    "(the reference rebuilds on fewer workers)") from e
             report.device_losses.append(
                 {"workers_before": old_w, "workers_after": new_w})
             report.faults.append({"kind": "device_loss", "error": str(e)})

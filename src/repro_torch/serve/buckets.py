@@ -44,8 +44,10 @@ from typing import Tuple
 
 from repro_torch.api.spec import ExperimentSpec
 
-#: The layout every bucket is placed on: the port runs one device. The
-#: reference's mesh layouts are ROADMAP queue 1 item 4.
+#: The layout every bucket is placed on: one device, each bucket a captured
+#: CUDA graph. A mesh layout's day issues collectives a graph cannot hold
+#: (``EngineCore.runner_fn`` is eager there); serving on a mesh is ROADMAP
+#: queue 1 item 8.
 LAYOUTS = ("local",)
 _MESH_LAYOUTS = ("workers", "scenarios", "hybrid")
 
@@ -73,7 +75,7 @@ class ServeConfig:
     the warm bucket table (LRU beyond it); ``strict`` makes any post-warmup
     rebuild (a capture on the card) a request-failing error rather than
     just a counted one. ``layout`` must be ``"local"`` and ``workers`` and
-    ``scen_shards`` 1: the meshes are ROADMAP queue 1 item 4."""
+    ``scen_shards`` 1: the server runs on one device."""
 
     layout: str = "local"  # engine-core layout for every bucket
     workers: int = 1
@@ -98,9 +100,9 @@ class ServeConfig:
         if self.layout in _MESH_LAYOUTS or self.workers != 1 or self.scen_shards != 1:
             raise NotImplementedError(
                 f"layout '{self.layout}' (workers={self.workers}, scen_shards="
-                f"{self.scen_shards}) is not ported: the port serves on one "
-                "device ('local'); meshes are ROADMAP queue 1 item 4 (multiple "
-                "GPUs)")
+                f"{self.scen_shards}) is not served: the server runs on one device "
+                "('local'), each bucket a captured CUDA graph, which cannot hold a "
+                "mesh's collectives; serving on a mesh is ROADMAP queue 1 item 8")
         if self.layout not in LAYOUTS:
             raise ValueError(f"unknown layout '{self.layout}'")
         return self

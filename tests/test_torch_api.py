@@ -211,12 +211,14 @@ def test_sobol_first_order_matches_numpy(pop):
 
 
 def test_unported_engines_and_policies_raise(pop, tmp_path):
-    """The meshes raise, naming their ROADMAP item; checkpoints, the
-    resilient loop and chaos= (queue 1 item 3) run, equal to the plain run."""
+    """The mesh engines raise outside a process group of the mesh's size,
+    naming how to start the ranks (they run on gloo ranks in
+    test_torch_dist.py); checkpoints, the resilient loop and chaos= run,
+    equal to the plain run."""
     two = _spec(t_api, replicates=2)
     for kw in (dict(engine="dist"), dict(engine="hybrid"), dict(scenarios=2),
                dict(workers=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        with pytest.raises(RuntimeError, match="launch.mesh.spawn or torchrun"):
             t_api.run(two.with_overrides(**kw), population=pop, device="cpu")
     plain = t_api.run(two, population=pop, device="cpu")
     for i, (kw, chaos) in enumerate(((dict(ckpt_every=3), None),

@@ -174,5 +174,5 @@ def test_from_product_order_and_stack_roundtrip(pop):
         assert bool(p.iv.enabled[0]) == s.iv_enabled[0]
     again = core_lib.stack_params([core.scenario_params(i) for i in range(8)])
     assert torch.equal(again.iv.people, core.params.iv.people)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        EngineCore(pop, batch, device="cpu", layout="scenarios")
+    with pytest.raises(RuntimeError, match="launch.mesh.spawn or torchrun"):
+        EngineCore(pop, batch, device="cpu", layout="scenarios")  # no process group

@@ -6,7 +6,8 @@ host sync; checkpointed studies resumed and recovered bitwise, launches
 counting the replayed days, and the invariant guards on a card state equal
 to those on its CPU copy; the flash-attention kernel against its
 plain version, its wrapper's checks, and a prefill launching it once per
-layer.
+layer; a one-rank nccl mesh and a two-rank gloo mesh sharing the card,
+bitwise the local card run.
 
 Every test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a machine with PyTorch alone:
@@ -701,3 +702,56 @@ def test_served_on_the_card_bitwise_equals_solo_run(cuda):
     (key,) = list(server._buckets)
     (build,) = server._buckets.peek(key).runner().builds()
     assert isinstance(build, CapturedDays)
+
+
+MESH_DAYS = 30
+
+
+def _mesh_rank(pop, case, backend, sync_debug):
+    """One rank of a ``workers`` mesh on the card: MESH_DAYS days of twin-2k
+    (the day loop under sync-debug "error" when asked), its launches, the
+    gathered final state and the history, as numpy."""
+    import torch.distributed as dist
+
+    kw = dict(interventions=INTERVENTION_PRESETS["tti"]) if case == "tti" else {}
+    core = EngineCore.single(pop, disease.covid_model(), transmission.TransmissionModel(
+        tau=2e-5), seed=0, device="cuda", backend=backend, layout="workers", **kw)
+    dist.all_reduce(torch.zeros(1, device="cuda"), group=core.mesh.worker_group)
+    torch.cuda.synchronize()  # the group's communicator is up before the loop
+    for w in t_kernel.WRAPPERS:
+        w.launches = 0
+    torch.cuda.set_sync_debug_mode("error" if sync_debug else 0)
+    try:
+        final, _, hist, _ = core.run_days(MESH_DAYS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = {w.__name__: w.launches for w in t_kernel.WRAPPERS}
+    final = core.gather_state(final)
+    return ({f: getattr(final, f).cpu().numpy() for f in ("health", "dwell", "cumulative")},
+            hist.cpu().numpy(), launches)
+
+
+@pytest.mark.parametrize("dist_backend,W,case,backend", [
+    ("nccl", 1, "none", "pallas-compact"), ("gloo", 2, "none", "pallas-compact"),
+    ("gloo", 2, "tti", "pallas")])
+def test_mesh_on_the_card_equals_the_local_run(cuda, tmp_path, dist_backend, W, case, backend):
+    """A W = 1 mesh over nccl (its day loop under sync-debug "error") and a
+    W = 2 mesh of two ranks sharing the card over gloo are bitwise the local
+    card run, and each rank launches its kernel once a day."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    pop = get_epidemic("twin-2k").build()
+    kw = dict(interventions=INTERVENTION_PRESETS["tti"]) if case == "tti" else {}
+    core = EngineCore.single(pop, disease.covid_model(), transmission.TransmissionModel(
+        tau=2e-5), seed=0, device=cuda, backend=backend, **kw)
+    final, _, hist, _ = core.run_days(MESH_DAYS)
+    kernel = {"pallas-compact": "interactions_compact", "pallas": "interactions_padded"}[
+        backend] + ("_traced" if case == "tti" else "") + "_cuda"
+    for f, h, launches in mesh_lib.spawn(
+            _mesh_rank, W, backend=dist_backend, device="cuda:0", init_dir=str(tmp_path),
+            args=(pop, case, backend, dist_backend == "nccl"), timeout_s=60.0, wall_s=300.0):
+        assert np.array_equal(h, hist.cpu().numpy())
+        for k, v in f.items():
+            assert np.array_equal(v[..., :pop.num_people], getattr(final, k).cpu().numpy()), k
+        assert launches == {w.__name__: MESH_DAYS if w.__name__ == kernel else 0
+                            for w in t_kernel.WRAPPERS}

@@ -234,7 +234,7 @@ def test_bucketize_refuses_unservable_specs(pop):
 @pytest.mark.parametrize("cfg", [dict(layout="workers"), dict(layout="hybrid"),
                                  dict(workers=2), dict(scen_shards=2)])
 def test_serve_config_refuses_meshes(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="serving on a mesh is ROADMAP queue 1 item 8"):
         t_serve.ServeConfig(**cfg).validate()
     with pytest.raises(ValueError, match="unknown layout"):
         t_serve.ServeConfig(layout="no-such").validate()

@@ -95,6 +95,26 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      (``run_chunked`` with its resume key), bitwise; one launch per rank per
      day throughout; per layout ms/day, each rank's host build, collectives
      per day by kind and bytes sent;
+  4h. elastic shrink, the static-network oracle, detlint — (a) and (b) run
+     at the end of phase 4g's two- and four-rank spawns: (a) the B = 1
+     study on engine dist, W = 2 over gloo on the shared card, checkpointed
+     every 50 days under the recovery policy with a device_loss chaos event
+     (one worker) at day 100, on each backend: rank 1 retires at day 100
+     (an empty history, 100 launches), rank 0 rebuilds on W = 1 and resumes
+     from the day-100 snapshot, bitwise phase 4d's study, 200 launches, the
+     report reading 2 -> 1; ms/day before and after the loss, the rebuild
+     (groups, plan and tables) and the restore; (b) the B = 8 study on a
+     hybrid 2 x 2 mesh (four ranks) losing its second worker row at day 100:
+     ranks 0-1 finish on 1 x 2 bitwise phase 4d's B = 8 study, ranks 2-3
+     retire; (c) the static-network mode against core/baseline.py's oracle:
+     the Watts-Strogatz 500 case on both backends equal on every day, then
+     md-mini under the oracle's SIR(7) and seeding (2 a day for 5 days) for
+     STATIC_DAYS days, equal on every day until a day with an infection
+     decision inside the float32 band, or after a dwell draw inside it
+     (that day and the first in-band day printed), with the oracle's network
+     build and run seconds beside the card's ms/day; (d) no float64
+     op dispatched in a card day of either route; (e) the port's detlint over
+     src/repro_torch and this file: 0 findings, no baseline;
   5. reference — twin-2k on the card against the plain path on the CPU, 30
      days untraced and 25 days under test-trace-isolate: the same
      trajectory up to float ulps in exp/log;
@@ -116,7 +136,8 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
 The line before the last is the kernels' JSON record (``launches``: phase
 4d's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
-phase 4g's, summed over its ranks); the last line is
+phase 4g's and ``shrink_launches``: phase 4h (a)-(b)'s, each summed over
+its ranks); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
 package ``repro``.
 """
@@ -506,10 +527,13 @@ def flash_phase(fk, card: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products in
     torch.backends.cudnn.allow_tf32 = False  # the plain version and SDPA
+    # detlint: ignore[DET001] — the flash cases' inputs: a seeded generator
+    # on the card, not simulation state
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = None
     for label, B, H, M, Sq, Sk, Dh, dt, causal, window in FLASH_CASES:
         G = H // M
+        # detlint: ignore[DET001] — the same seeded inputs
         draw = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dt)
         q, k, v = draw(B * H, Sq, Dh), draw(B * M, Sk, Dh), draw(B * M, Sk, Dh)
         kw = dict(causal=causal, window=window)
@@ -630,6 +654,8 @@ def serve_phase(fk, card: str) -> int:
     cfg = dataclasses.replace(get_config(SERVE_ARCH), compute_dtype="bfloat16",
                               attn_impl="flash")
     t0 = time.perf_counter()
+    # detlint: ignore[DET001] — random model weights from a seed (the LM
+    # side-stack serves random weights), not simulation state
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     prompts = TokenPipeline(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH, 0).batch(0)
     torch.cuda.synchronize()
@@ -694,6 +720,8 @@ def interaction_states(core, covid, ops):
     location's visits are no longer contiguous, on the same schedule."""
     P = core.pop.num_people
     dev = core.device
+    # detlint: ignore[DET001] — the kernel check's synthetic states: a seeded
+    # host generator, not simulation state
     rs = np.random.default_rng(0)
     tables = (torch.as_tensor(covid.susceptibility, device=dev),
               torch.as_tensor(covid.infectivity, device=dev))
@@ -717,6 +745,7 @@ def interaction_states(core, covid, ops):
         states[label] = (args, src)
     args, src = states["mid"]
     V = args[0].shape[0]
+    # detlint: ignore[DET001] — the "shuffled" kernel state's permutation
     perm = np.random.default_rng(1).permuted(
         np.arange(V).reshape(-1, BLOCK), axis=1).reshape(-1)
     perm = torch.as_tensor(perm, device=dev)
@@ -1598,7 +1627,8 @@ def _mesh_run(core, days: int, sync_debug: bool) -> dict:
 
     state = core.init_state()
     group = core.mesh.worker_group or core.mesh.scenario_group
-    dist.all_reduce(torch.zeros(1, device="cuda"), group=group)  # communicator up
+    dist.all_reduce(torch.zeros(1, dtype=torch.float32, device="cuda"),
+                    group=group)  # communicator up
     torch.cuda.synchronize()
     core.topo.reset_counts()
     _kernel_counts(reset=True)
@@ -1649,14 +1679,14 @@ def _mesh_cores(pop, days: int, cases, sync_debug: bool) -> dict:
     return out
 
 
-def _counted_study(spec, pop) -> tuple:
-    """api.run on this rank with the launch counts set to 0 just before and
-    read just after: (RunResult, launches)."""
+def _counted_study(spec, pop, **kw) -> tuple:
+    """api.run on this rank (``kw`` passed on) with the launch counts set to 0
+    just before and read just after: (RunResult, launches)."""
     from repro_torch import api
 
     torch.cuda.synchronize()
     _kernel_counts(reset=True)
-    r = api.run(spec, population=pop)
+    r = api.run(spec, population=pop, **kw)
     return r, _kernel_counts()
 
 
@@ -1687,14 +1717,16 @@ def _rank_two(pop, days, root):
         shutil.copytree(os.path.join(root, "prefix"), os.path.join(root, "prefix-for-local"))
     dist.barrier()
     out["resumed"] = _counted_study(ck("prefix"), pop)
+    out["shrink"] = _rank_shrink_two(pop, days, SHRINK_ROOT)
     return out
 
 
 def _rank_four(pop, days):
     """Phase 4g (c): the B = 8 study on a 2 x 2 hybrid mesh, four ranks
-    sharing the card over gloo."""
+    sharing the card over gloo; then phase 4h (b) on the same ranks."""
     return {"hybrid": _counted_study(study_spec(8).with_overrides(workers=2, scenarios=2),
-                                     pop)}
+                                     pop),
+            "shrink": _rank_shrink_four(pop, days, SHRINK_ROOT)}
 
 
 def _mesh_line(tag: str, r: dict, card: str) -> None:
@@ -1720,8 +1752,10 @@ def _same_as_local(r: dict, ref: tuple, P: int, what: str) -> None:
 def mesh_phase(pop, wrappers, local, studies, card) -> dict:
     """Phase 4g: the mesh layouts on one card. ``local``: phase 4/4c's runs
     by (preset, backend) -> (final, hist); ``studies``: phase 4d's api.run
-    results by width. Returns the mesh runs' launches by kernel, summed
-    over ranks."""
+    results by width. The same spawns run phase 4h (a) and (b) after phase
+    4g's work (a spawn of four ranks costs ~40 s of start-up alone). Returns
+    the mesh runs' launches by kernel, summed over ranks, and phase 4h's
+    results of the two- and four-rank spawns."""
     import shutil
     import tempfile
 
@@ -1734,8 +1768,9 @@ def mesh_phase(pop, wrappers, local, studies, card) -> dict:
     log(f"[mesh] ranks share one card; no scaling claim. {DAYS} days of {DATASET}; "
         f"every group's timeout {MESH_TIMEOUT_S:.0f} s, each spawn's wall limit "
         f"{MESH_WALL_S:.0f} s; {card}")
-    shutil.rmtree(MESH_ROOT, ignore_errors=True)
-    os.makedirs(MESH_ROOT)
+    for d in (MESH_ROOT, SHRINK_ROOT):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
     init = tempfile.mkdtemp(prefix="pg-", dir=MESH_ROOT)
     spawn = lambda fn, n, backend, *args: mesh_lib.spawn(
         fn, n, backend=backend, device="cuda:0", init_dir=init, args=(pop, days, *args),
@@ -1844,6 +1879,225 @@ def mesh_phase(pop, wrappers, local, studies, card) -> dict:
             f"{json.dumps(prov['collectives'], sort_keys=True)}, bytes sent "
             f"{json.dumps(prov['bytes_sent'], sort_keys=True)}; {card}")
     shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    return total, {"two": [r["shrink"] for r in two], "four": [r["shrink"] for r in four]}
+
+
+SHRINK_DAY = 100  # phase 4h's device loss, at a chunk boundary (every CKPT_EVERY)
+SHRINK_ROOT = os.path.join(ROOT, "build", "chip_smoke_shrink")
+# Phase 4h (c): the float32 decision band against the oracle's float64. The
+# engine sums a person's exposure in float32 over its contacts (relative
+# error up to ~K * 2^-24 for K terms), so exp(-A) may move by ~A * K * 6e-8;
+# 1e-5 of (1 + A) covers K up to ~160 in the worst case. A dwell draw
+# -7 log(u) is a few float32 roundings (~2e-7 relative) from the oracle's.
+BAND_INFECT = 1e-5
+BAND_DWELL = 1e-6
+WS_CASE = dict(people=500, locations=120, pop_seed=9, seed=4, tau=1.5e-5, days=30)
+STATIC_SEED = 0
+STATIC_DAYS = DAYS  # md-mini days of phase 4h (c)
+
+
+def _shrink_study(spec, pop, root, tag):
+    """One resilient study on this rank, checkpointed every CKPT_EVERY days
+    into its own directory, under a device loss of one worker at
+    SHRINK_DAY: (RunResult, launches); then every rank waits for the
+    others (the retired ones for the survivors)."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import ChaosEvent, ChaosSchedule
+
+    spec = spec.with_overrides(ckpt_dir=os.path.join(root, tag), ckpt_every=CKPT_EVERY,
+                               resilient=True)
+    out = _counted_study(spec, pop, chaos=ChaosSchedule((
+        ChaosEvent("device_loss", day=SHRINK_DAY, workers_lost=1),)))
+    dist.barrier()
+    return out
+
+
+def _rank_shrink_two(pop, days, root):
+    """Phase 4h (a) on each of two ranks sharing the card over gloo: engine
+    dist, W = 2 -> 1, B = 1, on each backend; and the wall s of both."""
+    t0 = time.perf_counter()
+    out = {backend: _shrink_study(study_spec(1, days=days, backend=backend)
+                                  .with_overrides(workers=2), pop, root, f"dist-{backend}")
+           for backend in ("pallas-compact", "pallas")}
+    return dict(out, wall_s=time.perf_counter() - t0)
+
+
+def _rank_shrink_four(pop, days, root):
+    """Phase 4h (b) on each of four ranks: engine hybrid 2 x 2 -> 1 x 2 at
+    B = 8; and its wall s."""
+    t0 = time.perf_counter()
+    out = _shrink_study(study_spec(8, days=days).with_overrides(workers=2, scenarios=2),
+                        pop, root, "hybrid")
+    return {"hybrid": out, "wall_s": time.perf_counter() - t0}
+
+
+def _check_shrink(res: list, survivors: int, ref, kname: str, layout: str, what: str,
+                  total: dict, card: str) -> None:
+    """Phase 4h's checks of one shrink over its ranks' (RunResult,
+    launches): the survivors bitwise ``ref`` with DAYS launches, the
+    retired ranks with SHRINK_DAY and an empty history, every rank's report
+    reading 2 -> 1; then its numbers."""
+    for rank, (r, launches) in enumerate(res):
+        prov = r.provenance
+        rep = prov["resilience"]
+        if rep["device_losses"] != [{"workers_before": 2, "workers_after": 1}] or \
+                rep["final_workers"] != 1 or rep["final_layout"] != layout:
+            raise AssertionError(f"{what} rank {rank}: report {rep}")
+        alive = rank < survivors
+        expect_launches(launches, kname, DAYS if alive else SHRINK_DAY, f"{what} rank {rank}")
+        for k, v in launches.items():
+            total[k] += v
+        if not alive:
+            if r.history or rep.get("retired_at_day") != SHRINK_DAY:
+                raise AssertionError(f"{what} rank {rank}: not retired at day {SHRINK_DAY}: "
+                                     f"{prov}")
+            log(f"[shrink] {what} rank {rank}: retired at day {SHRINK_DAY} after "
+                f"{launches[kname]} launches, history empty")
+            continue
+        same_study(ref, r, f"{what} rank {rank}")
+        if prov["resumed_from_day"] != SHRINK_DAY or prov["final_mesh"]["workers"] != 1:
+            raise AssertionError(f"{what} rank {rank}: provenance {prov}")
+        chunks = [e for e in prov["timeline"] if e["kind"] == "chunk"]
+        before = [e["s"] for e in chunks if e["workers"] == 2]
+        after = [e["s"] for e in chunks if e["workers"] == 1]
+        restores = [e["ms"] for e in prov["timeline"] if e["kind"] == "restore"]
+        (el,) = prov["elastic"]
+        log(f"[shrink] {what} rank {rank}: bitwise phase 4d's study; device loss at day "
+            f"{SHRINK_DAY}, 2 -> 1 workers, {launches[kname]} launches "
+            f"({SHRINK_DAY} on W=2, {DAYS - SHRINK_DAY} on W=1); ms/day before "
+            f"{1e3 * sum(before) / SHRINK_DAY:.3f}, after "
+            f"{1e3 * sum(after) / (DAYS - SHRINK_DAY):.3f}; rebuild {el['rebuild_s']:.3f} s "
+            f"(groups {el['groups_s']:.3f} s, plan and tables {el['plan_and_tables_s']:.3f} "
+            f"s); restore {restores[-1]:.3f} ms; collectives "
+            f"{json.dumps(prov['collectives'], sort_keys=True)}; {card}")
+
+
+def static_oracle_phase(pop, wrappers, card) -> None:
+    """Phase 4h (c): the static-network mode on the card against the
+    EpiHiper-style oracle (``core/baseline.py``): the Watts-Strogatz 500 case
+    on both backends, equal on every day; then md-mini with the oracle's SIR
+    model and seeding, equal on every day until a day that a decision inside
+    the float32 band (BAND_INFECT, BAND_DWELL) explains; that day and the
+    first in-band day are printed."""
+    from repro_torch.configs import get_epidemic
+    from repro_torch.core import baseline
+    from repro_torch.core import disease as disease_lib
+    from repro_torch.core import transmission as tx_lib
+    from repro_torch.data import watts_strogatz_population
+    from repro_torch.engine import EngineCore
+
+    c = WS_CASE
+    ws = watts_strogatz_population(c["people"], c["locations"], seed=c["pop_seed"], name="bl")
+    tm = tx_lib.TransmissionModel(tau=c["tau"])
+    oracle = baseline.run_sir_on_network(
+        ws, baseline.precompute_contact_network(ws, seed=c["seed"]), tm, c["days"],
+        c["seed"], seed_per_day=2, seed_days=5, recovery_days=7.0)
+    for backend, kname in (("pallas-compact", "interactions_compact"),
+                           ("pallas", "interactions_padded")):
+        core = EngineCore.single(ws, disease_lib.sir_model(7.0), tm, seed=c["seed"],
+                                 static_network=True, seed_per_day=2, seed_days=5,
+                                 block_size=BLOCK, device="cuda", backend=backend)
+        _, hist, launches, _ = run_path(core, wrappers, c["days"])
+        expect_launches(launches, kname, c["days"], f"static WS-500 {backend}")
+        for k in ("cumulative", "infectious"):
+            if not np.array_equal(hist[k], oracle[k]):
+                raise AssertionError(f"static WS-500 {backend}: '{k}' differs from the "
+                                     f"oracle: {hist[k]} vs {oracle[k]}")
+    log(f"[static] Watts-Strogatz 500, SIR, tau {c['tau']}, seed {c['seed']}, {c['days']} "
+        f"days on both backends: cumulative and infectious equal to the oracle on every "
+        f"day (attack rate {oracle['cumulative'][-1]} of {c['people']})")
+
+    tm = tx_lib.TransmissionModel(tau=get_epidemic(DATASET).tau)
+    t0 = time.perf_counter()
+    net = baseline.precompute_contact_network(pop, seed=STATIC_SEED)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = baseline.run_sir_on_network(pop, net, tm, STATIC_DAYS, STATIC_SEED,
+                                         seed_per_day=2, seed_days=5, recovery_days=7.0,
+                                         margins=True)
+    run_s = time.perf_counter() - t0
+    core = EngineCore.single(pop, disease_lib.sir_model(7.0), tm, seed=STATIC_SEED,
+                             static_network=True, seed_per_day=2, seed_days=5,
+                             block_size=BLOCK, device="cuda")
+    _, hist, launches, dt = run_path(core, wrappers, STATIC_DAYS)
+    expect_launches(launches, "interactions_compact", STATIC_DAYS, "static md-mini")
+    # A day's infections show that day; a dwell draw shows at its recovery,
+    # later: so the first day the histories part must have an infection
+    # decision in the band, or follow a dwell draw in the band.
+    in_infect = oracle["infect_margin"] < BAND_INFECT
+    in_dwell = np.minimum.accumulate(oracle["dwell_margin"]) < BAND_DWELL
+    band = np.flatnonzero(in_infect | (oracle["dwell_margin"] < BAND_DWELL))
+    first_band = int(band[0]) if band.size else None
+    parts = np.flatnonzero(np.any([hist[k] != oracle[k]
+                                   for k in ("cumulative", "infectious")], axis=0))
+    first_diff = int(parts[0]) if parts.size else None
+    if first_diff is not None and not (in_infect[first_diff] or in_dwell[first_diff]):
+        raise AssertionError(
+            f"static md-mini: the card parts from the oracle on day {first_diff} with no "
+            f"decision inside the float32 band (infect margin "
+            f"{oracle['infect_margin'][first_diff]:.3g}, least dwell margin so far "
+            f"{np.min(oracle['dwell_margin'][:first_diff + 1]):.3g})")
+    edges = sum(len(s) for s in net.src)
+    log(f"[static] {DATASET}, SIR(7), tau {tm.tau}, seed {STATIC_SEED}, {STATIC_DAYS} days: "
+        + ("equal to the oracle on every day" if first_diff is None else
+           f"equal to the oracle on days 0-{first_diff - 1}, parting on day {first_diff} "
+           f"(infect margin {oracle['infect_margin'][first_diff]:.3g}, least dwell margin "
+           f"so far {np.min(oracle['dwell_margin'][:first_diff + 1]):.3g})")
+        + f"; the first day with a decision inside the float32 band: {first_band} "
+        f"({0 if first_band is None else band.size} such days); attack rate "
+        f"{int(hist['cumulative'][-1])} of {pop.num_people} (oracle "
+        f"{int(oracle['cumulative'][-1])}); {STATIC_DAYS} launches")
+    log(f"[static] oracle network build {build_s:.3f} s ({edges} directed contact edges a "
+        f"week), oracle run {run_s:.3f} s ({1e3 * run_s / STATIC_DAYS:.3f} ms/day, numpy "
+        f"float64 on the host); the card {1e3 * dt / STATIC_DAYS:.3f} ms/day; {card}")
+
+
+def shrink_phase(pop, wrappers, studies, spawned, day_cores, day_state, card) -> dict:
+    """Phase 4h: (a) engine dist W = 2 -> 1 on both backends, (b) engine
+    hybrid 2 x 2 -> 1 x 2 at B = 8, each under a device loss at SHRINK_DAY
+    and bitwise phase 4d's study (``spawned``: their ranks' results, run at
+    the end of phase 4g's spawns); (c) the static-network oracle; (d) no
+    float64 op in a card day of either route (``day_cores``: phase 4's
+    cores by backend, stepped from ``day_state``, day PROFILE_FROM); (e) the
+    port's detlint clean. Returns (a) and (b)'s launches by kernel, summed
+    over ranks."""
+    import shutil
+
+    from repro_torch.analysis.dispatch import assert_no_f64
+    from repro_torch.analysis.lint import LintConfig, run_lint
+    from repro_torch.engine import day as day_lib
+
+    total = {k: 0 for k in KERNELS}
+    two, four = spawned["two"], spawned["four"]
+    log(f"[shrink] ranks share one card over gloo (phase 4g's spawns); a device_loss chaos "
+        f"event (one worker) fires on every rank at day {SHRINK_DAY} of {DAYS}, "
+        f"checkpoints every {CKPT_EVERY} days; the ranks' wall for (a) "
+        f"{max(r['wall_s'] for r in two):.1f} s, for (b) {max(r['wall_s'] for r in four):.1f} "
+        f"s; {card}")
+    for backend, kname in (("pallas-compact", "interactions_compact"),
+                           ("pallas", "interactions_padded")):
+        _check_shrink([rank[backend] for rank in two], 1, studies[1], kname, "workers",
+                      f"(a) dist W=2 -> 1 on {backend}", total, card)
+    _check_shrink([rank["hybrid"] for rank in four], 2, studies[8], "interactions_compact",
+                  "hybrid", "(b) hybrid 2x2 -> 1x2, B=8", total, card)
+    shutil.rmtree(SHRINK_ROOT, ignore_errors=True)
+
+    stamp("static-network oracle")
+    static_oracle_phase(pop, wrappers, card)
+
+    stamp("f64 and detlint")
+    for backend, core in day_cores.items():
+        assert_no_f64(day_lib.day_step, core.topo, core.static, core.week, core.params,
+                      day_state)
+        log(f"[f64] one card day of {DATASET} on {backend} (day {PROFILE_FROM}): no float64 "
+            "op dispatched")
+    findings, errors = run_lint([os.path.join(ROOT, "src", "repro_torch"),
+                                 os.path.join(ROOT, "chip_smoke.py")], LintConfig())
+    if findings or errors:
+        raise AssertionError("detlint: " + "; ".join(
+            [f"{f.path}:{f.line}: {f.rule} {f.message}" for f in findings] + errors))
+    log("[detlint] src/repro_torch and chip_smoke.py: 0 findings, no baseline")
     return total
 
 
@@ -2051,7 +2305,13 @@ def main() -> int:
     local = {("none", "pallas-compact"): (final1, hist1), ("none", "pallas"): (final_p, hist_p),
              ("tti", "pallas-compact"): tti["pallas-compact"][:2],
              ("tti", "pallas"): tti["pallas"][:2]}
-    mesh_launches = mesh_phase(pop, wrappers, local, studies, card)
+    mesh_launches, shrunk = mesh_phase(pop, wrappers, local, studies, card)
+
+    # ---- phase 4h: elastic shrink, the static-network oracle, detlint -------
+    stamp("elastic shrink")
+    shrink_launches = shrink_phase(pop, wrappers, studies, shrunk,
+                                   {"pallas-compact": core, "pallas": padded_core},
+                                   mid_state, card)
 
     # ---- phase 5: reference on a small input ------------------------------
     stamp("reference")
@@ -2101,6 +2361,7 @@ def main() -> int:
             "launches": main_launches[kname],
             "served_launches": served_launches[kname],
             "mesh_launches": mesh_launches[kname],
+            "shrink_launches": shrink_launches[kname],
             "max_abs_err": max(rec["max_abs_err"],
                                *(r["max_abs_err"] for r in records[kname].values())),
             "ms": rec["ms"],

@@ -6,8 +6,10 @@ function's XLA cache; the port's warm executables are
 :class:`repro_torch.engine.runner.DayRunner` builds — on the card a captured
 CUDA graph per input signature, on the CPU the eager loop's signature
 record — so the sentinel watches a runner's count of builds
-(:meth:`DayRunner.cache_size`). The rest of ``hlo.py`` reads XLA's lowered
-programs and has no counterpart here (ROADMAP queue 1 item 6).
+(:meth:`DayRunner.cache_size`). ``hlo.py``'s other level-2 helpers
+(``find_f64``, ``assert_no_f64``, ``collective_count``) are
+:mod:`repro_torch.analysis.dispatch`; its HLO readers (``collective_bytes``,
+``measure_compiled``) serve the LM tooling (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -171,14 +171,23 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
     # A pinned single or dist engine with B > 1 runs the scenarios one at a
     # time; cross-scenario reductions then replay after the run.
     in_scan = not (engine in ("single", "dist") and B > 1)
-    built = {}  # the most recently built core (provenance below)
+    built = {"mesh": mesh}  # the most recently built core and its mesh
+    shrinks = []  # per elastic shrink: its rebuild's seconds
 
     def build_driver():
-        # a rebuild (the recovery policy's) reuses the first core's plan
-        plan = built["core"].plan if "core" in built else None
-        core = engine_lib.EngineCore(pop, batch, layout=LAYOUTS[engine], mesh=mesh,
-                                     plan=plan, block_size=spec.block_size, device=device,
+        prev = built.get("core")
+        # a rebuild on the same workers (the straggler policy's) reuses the
+        # last core's plan; a plan is one worker count's, so a shrink builds
+        # its own (and its per-rank tables)
+        same = prev is not None and prev.mesh is built["mesh"]
+        core = engine_lib.EngineCore(pop, batch, layout=LAYOUTS[engine], mesh=built["mesh"],
+                                     plan=prev.plan if same else None,
+                                     block_size=spec.block_size, device=device,
                                      backend=ROUTES[spec.backend])
+        if prev is not None and mesh is not None:
+            # the run's collectives and bytes continue across a rebuild
+            core.topo.counts.update(prev.topo.counts)
+            core.topo.bytes_sent.update(prev.topo.bytes_sent)
         built["core"] = core
         if in_scan:
             return engine_lib.CoreDriver(core, observables)
@@ -190,16 +199,33 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
 
     def make_driver(workers=None):
         """The chunk driver: the one built above, then a rebuild on each
-        call (on the same mesh) — the rebuild seam of the recovery policy.
-        ``workers`` is the mesh's own count here: run_resilient asks for
-        fewer only after a device loss, which it re-raises (elastic shrink
-        of a mesh is ROADMAP queue 1 item 8)."""
-        return first.pop() if first else build_driver()
+        call — the rebuild seam of the recovery policy. Fewer ``workers``
+        than the mesh has (after a device loss; every rank calls with the
+        same count) first make the survivors' mesh
+        (``WorkerMesh.shrink``), and return None on a rank that leaves."""
+        if first:
+            return first.pop()
+        cur = built["mesh"]
+        if cur is None or workers is None or workers == cur.workers:
+            return build_driver()
+        t0 = time.perf_counter()
+        survivors = cur.shrink(cur.workers - workers)
+        if survivors is None:
+            return None
+        built["mesh"] = survivors
+        t1 = time.perf_counter()
+        driver = build_driver()
+        shrinks.append({"workers_before": cur.workers, "workers_after": workers,
+                        "groups_s": round(t1 - t0, 3),
+                        "plan_and_tables_s": round(built["core"].plan_build_s, 3),
+                        "rebuild_s": round(time.perf_counter() - t0, 3)})
+        return driver
 
     ck = spec.checkpoint
     mgr = CheckpointManager(ck.directory, keep=ck.keep) if ck.directory else None
     rs = spec.resilience
     report = None
+    timeline = []  # the resilient loop's chunk and restore times
 
     t_run = time.time()
     if rs.enabled or chaos is not None:  # run_resilient refuses mgr=None
@@ -216,6 +242,7 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
                 manager=mgr, every=ck.every, resume=ck.resume,
                 resume_key=_resume_key(spec, engine, device),
                 policy=policy, chaos=chaos, on_straggler=on_straggler,
+                timeline=timeline,
             )
     else:
         state, hist, carries, dailies, resumed_from, num_chunks = \
@@ -226,6 +253,8 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
             )
     run_wall = time.time() - t_run
     core = built["core"]
+    if state is None:  # this rank left a shrinking mesh (run_resilient)
+        return _retired_result(spec, batch, engine, report, shrinks, timeline, t0, run_wall)
 
     if in_scan:
         obs = obs_lib.finalize_all(observables, carries, dailies, ctx)
@@ -260,10 +289,18 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
         provenance["plan_build_s"] = round(core.plan_build_s, 3)
         provenance["collectives"] = dict(core.topo.counts)
         provenance["bytes_sent"] = dict(core.topo.bytes_sent)
+        provenance["final_mesh"] = {"workers": core.mesh.workers,
+                                    "scenarios": core.mesh.scenarios}
+    if shrinks:
+        # each elastic shrink's host rebuild on this rank: the survivors'
+        # groups, the new plan and per-rank tables, the whole rebuild
+        provenance["elastic"] = shrinks
     if report is not None:
         # what recovery did: restarts, chunks replayed, snapshots
-        # quarantined, straggler/device-loss events, final layout
+        # quarantined, straggler/device-loss events, final layout; and each
+        # chunk's and restore's wall time, with the workers it ran on
         provenance["resilience"] = report.to_dict()
+        provenance["timeline"] = timeline
     if "teps" in obs:
         provenance["edges_total"] = float(obs["teps"]["edges_total"])
         provenance["teps"] = float(obs["teps"]["edges_total"]) / max(run_wall, 1e-9)
@@ -275,6 +312,22 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
         summaries=summaries,
         provenance=provenance,
     )
+
+
+def _retired_result(spec, batch, engine, report, shrinks, timeline, t0,
+                    run_wall) -> RunResult:
+    """What ``run`` returns on a rank that left a shrinking mesh: an empty
+    history and no observables or summaries; ``provenance["resilience"]``
+    carries ``retired_at_day`` (the chunk boundary it left at) beside the
+    device loss the survivors record too."""
+    return RunResult(
+        spec=spec, scenario_names=batch.names, history={}, observables={}, summaries=[],
+        provenance={"engine": engine, "layout": LAYOUTS[engine], "retired": True,
+                    "wall_s": round(time.time() - t0, 3),
+                    "run_wall_s": round(run_wall, 3),
+                    "resilience": report.to_dict(), "elastic": shrinks,
+                    "timeline": timeline,
+                    "core": engine_lib.CORE_VERSION})
 
 
 def run_file(path: str, **overrides) -> RunResult:

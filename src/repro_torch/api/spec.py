@@ -72,10 +72,10 @@ class ResilienceSpec:
     runs under failure→restore→replay recovery (needs
     ``checkpoint.directory``): capped, backed-off restarts from the newest
     *valid* snapshot (corrupt ones are quarantined), a post-chunk invariant
-    pack treated as a fault on violation, per-chunk straggler detection,
-    and, in the reference, elastic shrink onto fewer workers on device loss
-    (in the port a device loss re-raises, on a mesh naming its ROADMAP
-    item).
+    pack treated as a fault on violation, per-chunk straggler detection
+    (on a mesh, one vote of all ranks decides a repartition), and elastic
+    shrink onto fewer workers on device loss (a mesh's lost ranks retire,
+    the survivors rebuild and resume; on one worker the loss re-raises).
     Pure policy — it never changes the science, so it is not part of the
     checkpoint resume key and recovered runs are bitwise-equal to
     uninterrupted ones."""

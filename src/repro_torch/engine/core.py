@@ -672,7 +672,20 @@ class EngineCore:
         if self.mesh is not None:
             if manager is not None:
                 manager.wait()
-            dist.barrier()
+            dist.barrier(group=self.mesh.world_group)
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank of the mesh: one integer
+        ``all_reduce(MAX)`` over the mesh's ranks, which every rank must
+        call, whatever its flag (on one device, ``flag``). It is a
+        chunk-boundary vote, outside the day's counted schedule."""
+        if self.mesh is None:
+            return bool(flag)
+        # gloo reduces host tensors; nccl only the card's
+        dev = self.device if self.mesh.backend == "nccl" else torch.device("cpu")
+        x = torch.full((1,), int(bool(flag)), dtype=torch.int64, device=dev)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.mesh.world_group)
+        return bool(x.item())
 
 
 def _resolve_mesh(layout: str, mesh, workers, scen_shards):
@@ -767,11 +780,12 @@ def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
     (:func:`state_from_flat`), and passes through ``driver.adapt_state``.
 
     ``hooks`` (see :mod:`repro_torch.runtime.resilience`) observes the loop
-    at chunk granularity: ``on_start(state, day)``, ``before_chunk(day,
-    n)``, ``after_chunk(end_day, state, dt) -> state`` (called *before*
-    the boundary snapshot, so invariant guards can veto a poisoned state
-    reaching disk; ``dt`` ends with the chunk's history copy to the host,
-    so it times the device's work), ``after_save(day)``. Hook exceptions
+    at chunk granularity: ``on_restore(day, seconds)`` once a snapshot is
+    restored (verified, read and re-homed), ``on_start(state, day)``,
+    ``before_chunk(day, n)``, ``after_chunk(end_day, state, dt) -> state``
+    (called *before* the boundary snapshot, so invariant guards can veto a
+    poisoned state reaching disk; ``dt`` ends with the chunk's history copy
+    to the host, so it times the device's work), ``after_save(day)``. Hook exceptions
     propagate — they are the fault-injection and guard-violation surface.
 
     Returns ``(state, hist, carries, dailies, resumed_from, num_chunks)``.
@@ -805,9 +819,12 @@ def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
                 + "; refusing to splice trajectories — point "
                 "checkpoint.directory elsewhere or set "
                 "checkpoint.resume=false")
+        t0 = time.perf_counter()
         flat = manager.restore_flat(step)
         state = driver.adapt_state(
             state_from_flat(flat, driver.init_state(), core.pop.num_people))
+        if hooks is not None:
+            hooks.on_restore(step, time.perf_counter() - t0)
         hists = [_hist_from_flat(flat, step)]
         if driver.in_scan:
             # Replay the pure reductions over the restored history so the

@@ -15,6 +15,10 @@ reference reshapes its devices into its hybrid mesh:
     ``scenarios`` subgroups (the ranks that share a worker shard and split
     the batch). Every rank must call the same maker, since each subgroup is
     made by every rank;
+  * :meth:`WorkerMesh.shrink` makes the survivors' mesh after a device loss
+    (the elastic path of ``runtime/resilience.py``): the highest worker
+    indices leave, the survivors get a world group and subgroups of their
+    own, and every rank of the old mesh takes part in making them;
   * :func:`spawn` starts the ranks on one host for tests, smoke runs and the
     CLIs (``torch.multiprocessing`` with the ``spawn`` start method, the
     group initialised from a file under ``init_dir``, so concurrent callers
@@ -59,7 +63,9 @@ class WorkerMesh:
     ``("workers",)``, ``("scenarios",)`` or ``("workers", "scenarios")``.
     ``worker_group`` spans the ranks of this rank's scenario shard (None
     without a ``workers`` axis), ``scenario_group`` the ranks of its worker
-    shard (None without a ``scenarios`` axis)."""
+    shard (None without a ``scenarios`` axis), ``world_group`` every rank
+    of the mesh (None: the default group; a survivors' mesh, :meth:`shrink`,
+    has its own). ``timeout_s`` is the timeout its groups were made with."""
 
     workers: int
     scenarios: int
@@ -68,6 +74,8 @@ class WorkerMesh:
     axis_names: tuple
     worker_group: Optional[object] = None
     scenario_group: Optional[object] = None
+    world_group: Optional[object] = None
+    timeout_s: float = TIMEOUT_S
 
     @property
     def size(self) -> int:
@@ -80,6 +88,30 @@ class WorkerMesh:
     @property
     def scenario_index(self) -> int:
         return self.rank % self.scenarios
+
+    def shrink(self, workers_lost: int) -> Optional["WorkerMesh"]:
+        """The survivors' mesh after the loss of the highest ``workers_lost``
+        worker indices (with their whole rows of scenario shards on a hybrid
+        grid), or None on a rank that leaves.
+
+        Ranks sit worker-major, so the survivors are ranks ``0 ..
+        (workers - workers_lost) * scenarios - 1``: rank 0 stays, and with it
+        the snapshot writer. Every rank of this mesh must call ``shrink``
+        with the same count, the leaving ranks included: each new group is
+        made by every rank, in the same order (``torch.distributed`` names a
+        group by how many were made before it), members and not. The new
+        groups take this mesh's timeout."""
+        new_w = self.workers - int(workers_lost)
+        if not 1 <= new_w < self.workers:
+            raise ValueError(f"a {self.workers}-worker mesh cannot lose {workers_lost} "
+                             "worker(s) and keep at least one")
+        timeout = datetime.timedelta(seconds=self.timeout_s)
+        world = dist.new_group(list(range(new_w * self.scenarios)), timeout=timeout)
+        wg, sg = _groups(new_w, self.scenarios, self.axis_names, self.rank, timeout)
+        if self.rank >= new_w * self.scenarios:
+            return None
+        return dataclasses.replace(self, workers=new_w, worker_group=wg, scenario_group=sg,
+                                   world_group=world)
 
 
 def no_group_error(workers: int, scenarios: int) -> RuntimeError:
@@ -103,22 +135,30 @@ def _grid(workers: int, scenarios: int, axis_names: tuple,
     if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != n:
         raise no_group_error(workers, scenarios)
     rank = dist.get_rank()
-    timeout = datetime.timedelta(seconds=timeout_s)
+    wg, sg = _groups(workers, scenarios, axis_names, rank,
+                     datetime.timedelta(seconds=timeout_s))
+    return WorkerMesh(workers=workers, scenarios=scenarios, rank=rank,
+                      backend=dist.get_backend(), axis_names=axis_names,
+                      worker_group=wg, scenario_group=sg, timeout_s=timeout_s)
+
+
+def _groups(workers: int, scenarios: int, axis_names: tuple, rank: int, timeout):
+    """The ``workers`` and ``scenarios`` subgroups of a ``workers x
+    scenarios`` grid over ranks ``0 .. workers * scenarios - 1``, and which
+    of them ``rank`` belongs to (None for an axis it lacks, or outside the
+    grid). Every rank makes every subgroup, in the same order."""
     wg = sg = None
-    # Every rank makes every subgroup, in the same order.
     if "workers" in axis_names:
         for s in range(scenarios):
             g = dist.new_group([w * scenarios + s for w in range(workers)], timeout=timeout)
-            if rank % scenarios == s:
+            if rank < workers * scenarios and rank % scenarios == s:
                 wg = g
     if "scenarios" in axis_names:
         for w in range(workers):
             g = dist.new_group([w * scenarios + s for s in range(scenarios)], timeout=timeout)
             if rank // scenarios == w:
                 sg = g
-    return WorkerMesh(workers=workers, scenarios=scenarios, rank=rank,
-                      backend=dist.get_backend(), axis_names=axis_names,
-                      worker_group=wg, scenario_group=sg)
+    return wg, sg
 
 
 def make_worker_mesh(num_workers: Optional[int] = None, *,

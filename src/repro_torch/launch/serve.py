@@ -145,6 +145,7 @@ def main(argv=None):
         cfg = dataclasses.replace(reduced_config(cfg), compute_dtype="float32")
     cfg = dataclasses.replace(cfg, **parse_overrides(args.set))
     device = resolve_device(args.device)
+    # detlint: ignore[DET001] — the random weights' seeded generator
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device)
     prompts = TokenPipeline(cfg.vocab_size, args.prompt_len, args.batch, args.seed).batch(0)

@@ -64,6 +64,8 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tens
         dims = [d for d, a in zip(shape, spec.axes) if a != "layers"]
         fan_in = int(np.prod(dims[:-1])) if len(dims) > 1 else 1
         scale = 1.0 / max(math.sqrt(fan_in), 1.0)
+    # detlint: ignore[DET001] — random weights from the caller's seeded
+    # generator (the LM side-stack serves random weights); no simulation draw
     x = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     return x.mul_(scale)
 

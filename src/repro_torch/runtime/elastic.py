@@ -8,7 +8,8 @@ run between person-sharded layouts is a pure host-side reshuffle:
 Counter-based RNG makes the continued run bitwise identical to an
 uninterrupted one. ``EngineCore.adopt_state`` uses these to take a snapshot
 written on any worker count onto its own (a local run's one worker, or a
-mesh's W).
+mesh's W) — after an elastic shrink (``runtime/resilience.py``), the
+survivors' W - k.
 """
 
 from __future__ import annotations

@@ -20,13 +20,23 @@ study needs:
   * **straggler detection** — per-chunk wall times (which end in the
     chunk's history copy, so they time the device's work) feed a robust
     median/MAD outlier test; an outlier may trigger a rebuild of the
-    driver at the next safe chunk boundary.
-  * **elastic degradation** — the reference rebuilds the driver on fewer
-    workers after a device loss and continues from the newest snapshot. In
-    the port a device loss re-raises: on one worker as the reference does,
-    and on a mesh because a shrink needs a new process group of the
-    surviving ranks (ROADMAP queue 1 item 8); ``EngineCore.adopt_state``
-    already moves a snapshot between worker counts.
+    driver at the next safe chunk boundary. Each rank times its own
+    chunks, so on a mesh the rebuild is decided by a vote: every rank puts
+    its flag into one ``all_reduce(MAX)`` at every chunk boundary
+    (``EngineCore.any_rank``), and all ranks rebuild, or none does.
+  * **elastic degradation** — on a device loss the driver is rebuilt on
+    fewer workers and the run continues from the newest snapshot. On one
+    worker there is none to drop, and the loss re-raises, as in the
+    reference. On a mesh of W workers that loses k, every rank takes part
+    in making the survivors' groups (``WorkerMesh.shrink``); the ranks of
+    the k highest worker indices then retire (this loop returns with
+    ``report.retired_at_day`` set and no state), and the survivors rebuild
+    on W - k workers (``make_driver(W - k)``: a new plan and per-rank
+    tables) and resume from the newest snapshot, which
+    ``EngineCore.adopt_state`` re-pads to the new person axis. Rank 0
+    always survives, so the snapshot writer does too. The loss is the
+    chaos harness's, an event every rank sees at the same boundary; a rank
+    that really dies is not detected here.
 
 On a mesh every rank runs this loop over the whole state, gathered (the
 same on every rank), so guards and chaos decide alike on every rank; rank 0
@@ -79,9 +89,17 @@ class ResilienceReport:
     faults: list = dataclasses.field(default_factory=list)
     final_workers: int = 1
     final_layout: str = "local"
+    #: on a rank that left a shrinking mesh: the day it left at (it returns
+    #: no state or history); None on every rank that finished the run
+    retired_at_day: Optional[int] = None
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        """The report as the reference writes it, plus ``retired_at_day`` on
+        a retired rank."""
+        d = dataclasses.asdict(self)
+        if d["retired_at_day"] is None:
+            del d["retired_at_day"]
+        return d
 
 
 class _RepartitionSignal(Exception):
@@ -100,7 +118,7 @@ class _ChunkHooks:
     def __init__(self, policy: ResiliencePolicy, report: ResilienceReport,
                  manager, guard: Optional[GuardContext],
                  chaos: Optional[ChaosSchedule],
-                 on_straggler: Optional[Callable]):
+                 on_straggler: Optional[Callable], timeline: Optional[list] = None):
         self.policy = policy
         self.report = report
         self.manager = manager
@@ -110,17 +128,32 @@ class _ChunkHooks:
         self.chunk_times: list = []
         self.max_end = 0  # furthest chunk boundary completed (any attempt)
         self.saved_any = False
+        self.day = 0  # the boundary entering the current chunk
+        #: the core whose mesh votes on a rebuild (set per driver; None
+        #: or one device: the local flag decides)
+        self.core = None
+        self.timeline = timeline  # chunk and restore events, when kept
+
+    def _log(self, **event) -> None:
+        if self.timeline is not None:
+            event["workers"] = int(getattr(self.core, "workers", 1))
+            self.timeline.append(event)
 
     # -- run_chunked hook surface ---------------------------------------
+    def on_restore(self, day: int, seconds: float) -> None:
+        self._log(kind="restore", day=int(day), ms=round(1e3 * seconds, 3))
+
     def on_start(self, state, day: int) -> None:
         if self.guard is not None:
             self.guard.reset(state)
 
     def before_chunk(self, day: int, n: int) -> None:
+        self.day = day
         if self.chaos is not None:
             self.chaos.before_chunk(day, self.manager)
 
     def after_chunk(self, end_day: int, state, dt: float):
+        self._log(kind="chunk", end_day=int(end_day), s=round(dt, 6))
         if end_day <= self.max_end:
             self.report.chunks_replayed += 1
         else:
@@ -140,22 +173,27 @@ class _ChunkHooks:
         times = self.chunk_times
         times.append(dt)
         w = self.policy.straggler_window
-        if len(times) < w:
-            return
-        window = np.asarray(times[-w:])
-        med = float(np.median(window))
-        mad = float(np.median(np.abs(window - med)))
-        slow = dt > max(self.policy.straggler_factor * med,
-                        med + self.policy.straggler_z * 1.4826 * mad)
-        if med > 0 and slow:
+        slow = False
+        if len(times) >= w:
+            window = np.asarray(times[-w:])
+            med = float(np.median(window))
+            mad = float(np.median(np.abs(window - med)))
+            slow = med > 0 and dt > max(self.policy.straggler_factor * med,
+                                        med + self.policy.straggler_z * 1.4826 * mad)
+        if slow:  # this rank's own event
             self.report.straggler_events.append(
                 {"day": int(end_day), "chunk_s": round(dt, 4),
                  "median_s": round(med, 4)})
             if self.on_straggler is not None:
                 self.on_straggler(end_day, dt, med)
-            if (self.policy.repartition_on_straggler
-                    and self.report.repartitions < self.policy.max_repartitions):
-                raise _RepartitionSignal(end_day)
+        if not self.policy.repartition_on_straggler:
+            return
+        if self.core is not None and self.core.mesh is not None:
+            # one decision per mesh: the vote runs at every boundary, so
+            # every rank issues the same collectives whatever its flag
+            slow = self.core.any_rank(slow)
+        if slow and self.report.repartitions < self.policy.max_repartitions:
+            raise _RepartitionSignal(end_day)
 
 
 def run_resilient(
@@ -171,6 +209,7 @@ def run_resilient(
     policy: Optional[ResiliencePolicy] = None,
     chaos: Optional[ChaosSchedule] = None,
     on_straggler: Optional[Callable] = None,
+    timeline: Optional[list] = None,
 ):
     """Run ``run_chunked`` under the recovery policy.
 
@@ -178,10 +217,17 @@ def run_resilient(
     a :class:`~repro_torch.engine.core.CoreDriver` or ``SequentialDriver``
     whose ``.core`` exposes ``workers``/``layout``/``params``. Passing a
     worker count rebuilds the engine on that many workers (the elastic
-    degradation path); ``None`` means the spec's own mesh.
+    degradation path); ``None`` means the spec's own mesh. On a mesh every
+    rank calls it with the same count; it returns None on a rank that
+    leaves the mesh.
 
     Returns ``run_chunked``'s tuple plus a :class:`ResilienceReport`:
     ``(state, hist, carries, dailies, resumed_from, num_chunks, report)``.
+    A rank that left a shrinking mesh gets ``(None, None, None, None, None,
+    0, report)`` with ``report.retired_at_day`` set. ``timeline``, a list,
+    receives every chunk's wall time (``{"kind": "chunk", "end_day", "s",
+    "workers"}``) and every restore's (``{"kind": "restore", "day", "ms",
+    "workers"}``), in order, across rebuilds.
     """
     from repro_torch.engine.core import ResumeKeyError, run_chunked
 
@@ -199,7 +245,8 @@ def run_resilient(
     # chaos damages snapshots where they are written: rank 0 of a mesh
     writer = getattr(driver.core, "is_writer", True)
     hooks = _ChunkHooks(policy, report, manager if writer else None, guard, chaos,
-                        on_straggler)
+                        on_straggler, timeline)
+    hooks.core = driver.core
 
     restarts = 0
     while True:
@@ -220,6 +267,7 @@ def run_resilient(
             report.faults.append(
                 {"kind": "repartition", "day": sig.day})
             driver = make_driver(int(getattr(driver.core, "workers", 1)))
+            hooks.core = driver.core
             hooks.chunk_times.clear()  # fresh program => fresh timing baseline
         except DeviceLossError as e:
             restarts += 1
@@ -229,16 +277,18 @@ def run_resilient(
             new_w = old_w - e.workers_lost
             if not policy.elastic or new_w < 1 or old_w <= 1:
                 raise
-            if getattr(driver.core, "mesh", None) is not None:
-                raise DeviceLossError(
-                    e.workers_lost,
-                    f"{e}: a device of a {old_w}-worker mesh was lost; elastic "
-                    "shrink onto the surviving ranks is ROADMAP queue 1 item 8 "
-                    "(the reference rebuilds on fewer workers)") from e
             report.device_losses.append(
                 {"workers_before": old_w, "workers_after": new_w})
             report.faults.append({"kind": "device_loss", "error": str(e)})
-            driver = make_driver(new_w)
+            layout = str(getattr(driver.core, "layout", "local"))
+            driver = make_driver(new_w)  # on a mesh: every rank, the same count
+            if driver is None:  # this rank left the mesh
+                manager.wait()  # no write of this rank's may outlive it
+                report.restarts = restarts
+                report.final_workers, report.final_layout = new_w, layout
+                report.retired_at_day = hooks.day
+                return (None, None, None, None, None, 0, report)
+            hooks.core = driver.core
             hooks.chunk_times.clear()  # fresh program => fresh timing baseline
             _backoff(policy, restarts)
         except Exception as e:  # noqa: BLE001 — the recovery boundary

@@ -7,7 +7,9 @@ counting the replayed days, and the invariant guards on a card state equal
 to those on its CPU copy; the flash-attention kernel against its
 plain version, its wrapper's checks, and a prefill launching it once per
 layer; a one-rank nccl mesh and a two-rank gloo mesh sharing the card,
-bitwise the local card run.
+bitwise the local card run; elastic shrinks of a two- and a four-rank mesh,
+bitwise the uninterrupted run; the static-network mode against its
+EpiHiper-style oracle.
 
 Every test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a machine with PyTorch alone:
@@ -755,3 +757,71 @@ def test_mesh_on_the_card_equals_the_local_run(cuda, tmp_path, dist_backend, W, 
             assert np.array_equal(v[..., :pop.num_people], getattr(final, k).cpu().numpy()), k
         assert launches == {w.__name__: MESH_DAYS if w.__name__ == kernel else 0
                             for w in t_kernel.WRAPPERS}
+
+
+SHRINK_DAYS, SHRINK_EVERY, SHRINK_DAY = 12, 3, 6
+
+
+def _shrink_rank(spec, root):
+    """One rank of a resilient twin-2k study on the card under a device loss
+    of one worker at SHRINK_DAY: its history, report and launches."""
+    from repro_torch import api
+    from repro_torch.runtime import ChaosEvent, ChaosSchedule
+
+    for w in t_kernel.WRAPPERS:
+        w.launches = 0
+    r = api.run(spec.with_overrides(ckpt_dir=root, ckpt_every=SHRINK_EVERY, resilient=True),
+                chaos=ChaosSchedule((ChaosEvent("device_loss", day=SHRINK_DAY,
+                                                workers_lost=1),)))
+    return (r.history, r.provenance["resilience"],
+            sum(w.launches for w in t_kernel.WRAPPERS))
+
+
+@pytest.mark.parametrize("engine,mesh,replicates", [
+    ("dist", dict(workers=2), 1), ("hybrid", dict(workers=2, scenarios=2), 3)])
+def test_elastic_shrink_on_the_card_equals_the_uninterrupted_run(cuda, tmp_path, engine,
+                                                                  mesh, replicates):
+    """Ranks sharing the card over gloo lose their highest worker at day 6:
+    the survivors' study is bitwise the uninterrupted local card run, the
+    lost ranks retire at day 6, and every rank reads 2 -> 1."""
+    from repro_torch import api
+    from repro_torch.launch import mesh as mesh_lib
+
+    spec = api.ExperimentSpec(dataset="twin-2k", days=SHRINK_DAYS, tau=2e-5,
+                              replicates=replicates)
+    ref = api.run(spec, device=cuda)
+    ranks = mesh["workers"] * mesh.get("scenarios", 1)
+    res = mesh_lib.spawn(_shrink_rank, ranks, backend="gloo", device="cuda:0",
+                         init_dir=str(tmp_path / "pg"),
+                         args=(spec.with_overrides(**mesh), str(tmp_path / "ck")),
+                         timeout_s=60.0, wall_s=300.0)
+    survivors = ranks // 2
+    for rank, (hist, rep, launches) in enumerate(res):
+        assert rep["device_losses"] == [{"workers_before": 2, "workers_after": 1}]
+        assert rep["final_workers"] == 1
+        assert rep["final_layout"] == ("workers" if engine == "dist" else "hybrid")
+        if rank < survivors:
+            assert launches == SHRINK_DAYS
+            for k, v in ref.history.items():
+                assert np.array_equal(hist[k], v), k
+        else:
+            assert hist == {} and rep["retired_at_day"] == SHRINK_DAY == launches
+
+
+@pytest.mark.parametrize("backend", ["pallas-compact", "pallas"])
+def test_static_mode_on_the_card_matches_the_oracle(cuda, backend):
+    """The reference's static-network case (Watts-Strogatz 500, SIR, 30
+    days) on the card equals the EpiHiper-style oracle on every day."""
+    from repro_torch.core import baseline
+    from repro_torch.data import watts_strogatz_population
+
+    pop = watts_strogatz_population(500, 120, seed=9, name="bl")
+    tm = transmission.TransmissionModel(tau=1.5e-5)
+    oracle = baseline.run_sir_on_network(pop, baseline.precompute_contact_network(pop, seed=4),
+                                         tm, 30, 4, seed_per_day=2, seed_days=5,
+                                         recovery_days=7.0)
+    core = EngineCore.single(pop, disease.sir_model(7.0), tm, seed=4, static_network=True,
+                             seed_per_day=2, seed_days=5, device=cuda, backend=backend)
+    _, hist = core.run1(30)
+    for k in ("cumulative", "infectious"):
+        assert np.array_equal(hist[k], oracle[k]), k

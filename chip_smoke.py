@@ -94,7 +94,16 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      study, and the W = 2 snapshot of day 100 resumed under ``local``
      (``run_chunked`` with its resume key), bitwise; one launch per rank per
      day throughout; per layout ms/day, each rank's host build, collectives
-     per day by kind and bytes sent;
+     per day by kind and bytes sent; (e) the simulation server on each mesh
+     layout, inside the same spawns: W = 2 and S = 2 (two ranks) and hybrid
+     2 x 2 (four ranks), md-mini, covid, SERVE_CHUNK-day chunks, two width-4
+     buckets (("none",) on pallas-compact, ("tti",) on pallas), four
+     requests of 1-3 scenarios and 20-40 days from two client threads on
+     rank 0 while the other ranks follow: every result bitwise phase 4d's
+     columns, the first of each bucket bitwise its solo api.run on the same
+     mesh, every rank's dispatch log equal, no build (runner, plan, tables,
+     group) after the warm-ups, one launch per served day on every rank;
+     served ms/day, latency p50/p99 and requests/s per layout;
   4h. elastic shrink, the static-network oracle, detlint — (a) and (b) run
      at the end of phase 4g's two- and four-rank spawns: (a) the B = 1
      study on engine dist, W = 2 over gloo on the shared card, checkpointed
@@ -115,6 +124,12 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      build and run seconds beside the card's ms/day; (d) no float64
      op dispatched in a card day of either route; (e) the port's detlint over
      src/repro_torch and this file: 0 findings, no baseline;
+  4i. the reference's lower-level entry points (core/simulator.py) on phase
+     4's B = 1 cores, EAGER_DAYS (14) days on each backend: run_eager, and
+     run_scan then one day_step, each bitwise phase 4's first days and
+     run1's final state, one launch a day; run_eager's visits / interact /
+     update ms per day (each phase ends in a synchronise) beside phase 4's
+     eager ms/day;
   5. reference — twin-2k on the card against the plain path on the CPU, 30
      days untraced and 25 days under test-trace-isolate: the same
      trajectory up to float ulps in exp/log;
@@ -136,8 +151,9 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
 The line before the last is the kernels' JSON record (``launches``: phase
 4d's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
-phase 4g's and ``shrink_launches``: phase 4h (a)-(b)'s, each summed over
-its ranks); the last line is
+phase 4g (a)-(d)'s, ``mesh_served_launches``: phase 4g (e)'s mixes and
+``shrink_launches``: phase 4h (a)-(b)'s, each summed over its ranks;
+``eager_launches``: phase 4i's run_eager); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
 package ``repro``.
 """
@@ -1085,7 +1101,7 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     stamp("sweep CLI")
     sweep.main(["--dataset", DATASET, "--days", "30", "--interventions", "none,lockdown",
                 "--replicates", "2"])
-    return main_launches, studies, cores
+    return main_launches, studies, cores, tti_runs["pallas"][1]
 
 
 def same_study(a, b, what: str) -> None:
@@ -1676,6 +1692,7 @@ def _mesh_cores(pop, days: int, cases, sync_debug: bool) -> dict:
                                  interventions=INTERVENTION_PRESETS[preset])
         out[(preset, backend)] = _mesh_run(core, days, sync_debug)
     out["fold_mismatches"] = sd.fold_mismatches(plan, pop)
+    out["plan"] = plan  # this rank's; the rank's server reuses it, never pickled back
     return out
 
 
@@ -1688,6 +1705,166 @@ def _counted_study(spec, pop, **kw) -> tuple:
     _kernel_counts(reset=True)
     r = api.run(spec, population=pop, **kw)
     return r, _kernel_counts()
+
+
+# Phase 4g (e): the simulation server on a mesh. Four requests of 1-3
+# scenarios and 20-40 days from two client threads on rank 0 over two
+# width-4 buckets, ("none",) on pallas-compact and ("tti",) on pallas, so the
+# untraced compacted and the traced padded kernel run on every rank; each
+# request's columns are phase 4d's (the B = 8 study's "none" columns, the
+# TTI ensemble's), and the first of each bucket also runs solo through
+# api.run on the same mesh (on the scenario mesh a B = 1 request runs
+# single: one scenario cannot be split over scenario shards).
+MESH_SERVE = {"workers": dict(workers=2), "scenarios": dict(scen_shards=2),
+              "hybrid": dict(workers=2, scen_shards=2)}
+MESH_MIX = ((30, ("none",), "pallas-compact", 2, 0), (20, ("none",), "pallas-compact", 1, 1),
+            (40, ("tti",), "pallas", 2, 0), (25, ("tti",), "pallas", 1, 2))
+MESH_SOLO = (0, 2)  # the first request of each bucket
+
+
+def mesh_mix() -> list:
+    """Phase 4g (e)'s requests: (days, interventions, backend, replicates,
+    seed) rows of MESH_MIX."""
+    from repro_torch import api
+
+    return [api.ExperimentSpec(name=f"mesh{i}", dataset=DATASET, days=d, interventions=iv,
+                               backend=b, replicates=r, seed=sd)
+            for i, (d, iv, b, r, sd) in enumerate(MESH_MIX)]
+
+
+def _solo_on_mesh(spec, layout: str):
+    kw = {"workers": dict(workers=2), "hybrid": dict(workers=2, scenarios=2)}.get(layout, {})
+    if layout == "scenarios" and spec.num_scenarios > 1:
+        kw = dict(scenarios=2)
+    return spec.with_overrides(**kw)
+
+
+def _serve_on_mesh(pop, layout: str, plan=None) -> dict:
+    """One mesh server on this rank: rank 0 warms both buckets, serves the
+    mix from two client threads, closes; the other ranks follow. The launch
+    counts are set to 0 before the mix on rank 0 and before following on the
+    others (whose count then holds the two warm-ups, SERVE_CHUNK days each).
+    Then the MESH_SOLO requests through api.run on the same mesh."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.serve import ServeConfig, SimulationServer
+
+    mix = mesh_mix()
+    t0 = time.perf_counter()
+    server = SimulationServer(ServeConfig(layout=layout, chunk_days=SERVE_CHUNK,
+                                          b_lattice=(4,), max_executables=2,
+                                          **MESH_SERVE[layout]))
+    server._pops[DATASET] = pop
+    if plan is not None:  # the plan phase 4g (b) built for this population and W
+        server._plans[(DATASET, BLOCK)] = plan
+    out = {"rank": server.rank, "build_s": time.perf_counter() - t0}
+    if server.rank == 0:
+        t0 = time.perf_counter()
+        for i in MESH_SOLO:
+            if server.warm_up(mix[i])["already_warm"]:
+                raise AssertionError(f"mesh {layout}: a bucket warm before its warm-up")
+        out["warm_up_s"] = time.perf_counter() - t0
+        out["builds_warm"] = dict(server.mesh_builds)
+        results = [None] * len(mix)
+
+        def client(k):
+            for i in range(k, len(mix), 2):
+                results[i] = server.submit(mix[i]).result(timeout=600)
+
+        torch.cuda.synchronize()
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        with server:
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError(f"mesh {layout}: a client thread did not finish")
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = _kernel_counts()
+        server.close()
+        out["results"] = results
+        out["metrics"] = server.metrics_dict()
+    else:
+        _kernel_counts(reset=True)
+        out["followed"] = server.follow()
+        out["launches"] = _kernel_counts()
+        out["metrics"] = server.metrics_dict()
+        if server.follow_errors:
+            raise AssertionError(f"mesh {layout}: rank {server.rank} failed a dispatch:\n"
+                                 f"{server.follow_errors[0]}")
+    out["builds"] = dict(server.mesh_builds)
+    out["log"] = server.dispatch_log
+    t0 = time.perf_counter()
+    out["solo"] = [api.run(_solo_on_mesh(mix[i], layout), population=pop) for i in MESH_SOLO]
+    out["solo_s"] = time.perf_counter() - t0
+    return out
+
+
+def _check_served(res: list, layout: str, study8, tti_hist, total: dict, card: str) -> None:
+    """Phase 4g (e)'s checks of one layout's ranks (``res``): every served
+    result bitwise phase 4d's columns (``study8``: the B = 8 study,
+    ``tti_hist``: the TTI ensemble's history) and, for MESH_SOLO, its solo
+    api.run on the mesh; the ranks' dispatch logs equal; no build after the
+    warm-ups; one launch per served day on every rank."""
+    lead, mix = res[0], mesh_mix()
+    for rank, r in enumerate(res):
+        if r["log"] != lead["log"]:
+            raise AssertionError(f"served {layout}: rank {rank}'s dispatch log differs")
+        if r["builds"] != lead["builds"] or r["metrics"]["executables"]["recompile_violations"]:
+            raise AssertionError(f"served {layout}: rank {rank} builds {r['builds']} / "
+                                 f"{json.dumps(r['metrics']['executables'])}")
+    if lead["builds"] != lead["builds_warm"] or not all(
+            x.served_from["warm"] for x in lead["results"]):
+        raise AssertionError(f"served {layout}: a build or a cold dispatch after the "
+                             f"warm-ups: {lead['builds_warm']} -> {lead['builds']}")
+    cols = {"none": study8.history, "tti": tti_hist}
+    for i, (spec, served) in enumerate(zip(mix, lead["results"])):
+        ref = cols[spec.interventions[0]]
+        lo = spec.seed  # the seeds 0.. are the columns 0.. of each reference
+        for k in served.history:
+            want = np.asarray(ref[k])[:spec.days, lo:lo + spec.num_scenarios]
+            if not np.array_equal(served.history[k], want):
+                raise AssertionError(f"served {layout} request {i}: '{k}' != phase 4d's "
+                                     "columns")
+    for rank, r in enumerate(res):
+        for j, i in enumerate(MESH_SOLO):
+            same_study(r["solo"][j], lead["results"][i],
+                       f"served {layout} request {i} against its solo api.run on rank {rank}")
+    chunks = lead["metrics"]["batches"]["chunks_run"]  # the two warm-ups count one each
+    days = (chunks - 2) * SERVE_CHUNK
+    for rank, r in enumerate(res):
+        got = dict(r["launches"])
+        if rank > 0:  # a follower's count holds the warm-ups
+            got["interactions_compact"] -= SERVE_CHUNK
+            got["interactions_padded_traced"] -= SERVE_CHUNK
+        if sum(got.values()) != days or min(got["interactions_compact"],
+                                            got["interactions_padded_traced"]) <= 0:
+            raise AssertionError(f"served {layout} rank {rank}: launches {r['launches']} "
+                                 f"for {days} served days")
+        for k, v in got.items():
+            total[k] += v
+    m = lead["metrics"]
+    lat = m["request_latency"]
+    per_day = [x.served_from["dispatch_wall_s"] / x.served_from["padded_days"]
+               for x in lead["results"]]
+    log(f"[served-mesh] {layout} {json.dumps(MESH_SERVE[layout])}, {len(res)} ranks over "
+        f"gloo on one card: {len(mix)} requests (1-3 scenarios, 20-40 days, two clients), "
+        f"{m['batches']['dispatched'] - 2} dispatches, {days} served days; every result "
+        f"bitwise phase 4d's columns, requests {list(MESH_SOLO)} bitwise their solo api.run "
+        f"on the mesh on every rank; dispatch logs equal on every rank ({len(lead['log'])} "
+        f"entries); builds {json.dumps(lead['builds'], sort_keys=True)}, none after the "
+        f"warm-ups; launches per rank {[r['launches'] for r in res]}")
+    log(f"[served-mesh] {layout}: served ms/day (dispatch wall / padded days) median "
+        f"{1e3 * float(np.median(per_day)):.3f} min {1e3 * min(per_day):.3f} max "
+        f"{1e3 * max(per_day):.3f}; request latency p50 {lat['p50_s']:.4f} s p99 "
+        f"{lat['p99_s']:.4f} s; {len(mix) / lead['wall_s']:.3f} requests/s "
+        f"({lead['wall_s']:.3f} s); server build {max(r['build_s'] for r in res):.2f} s, "
+        f"warm-ups {lead['warm_up_s']:.2f} s, solo runs {max(r['solo_s'] for r in res):.2f} "
+        f"s per rank; {card}")
 
 
 def _rank_nccl(pop, days):
@@ -1708,6 +1885,7 @@ def _rank_two(pop, days, root):
     out = {"workers": _mesh_cores(pop, days, (
         ("none", "pallas-compact"), ("none", "pallas"), ("tti", "pallas-compact"),
         ("tti", "pallas")), False)}
+    plan = out["workers"].pop("plan")
     out["sharded"] = _counted_study(study_spec(8).with_overrides(scenarios=2), pop)
     ck = lambda d, **kw: study_spec(1, **kw).with_overrides(
         workers=2, ckpt_dir=os.path.join(root, d), ckpt_every=CKPT_EVERY)
@@ -1717,6 +1895,8 @@ def _rank_two(pop, days, root):
         shutil.copytree(os.path.join(root, "prefix"), os.path.join(root, "prefix-for-local"))
     dist.barrier()
     out["resumed"] = _counted_study(ck("prefix"), pop)
+    out["served"] = {"workers": _serve_on_mesh(pop, "workers", plan),
+                     "scenarios": _serve_on_mesh(pop, "scenarios")}
     out["shrink"] = _rank_shrink_two(pop, days, SHRINK_ROOT)
     return out
 
@@ -1726,6 +1906,7 @@ def _rank_four(pop, days):
     sharing the card over gloo; then phase 4h (b) on the same ranks."""
     return {"hybrid": _counted_study(study_spec(8).with_overrides(workers=2, scenarios=2),
                                      pop),
+            "served": {"hybrid": _serve_on_mesh(pop, "hybrid")},
             "shrink": _rank_shrink_four(pop, days, SHRINK_ROOT)}
 
 
@@ -1749,12 +1930,14 @@ def _same_as_local(r: dict, ref: tuple, P: int, what: str) -> None:
             raise AssertionError(f"{what}: final '{f}' differs from the local run")
 
 
-def mesh_phase(pop, wrappers, local, studies, card) -> dict:
+def mesh_phase(pop, wrappers, local, studies, tti_hist, card) -> dict:
     """Phase 4g: the mesh layouts on one card. ``local``: phase 4/4c's runs
     by (preset, backend) -> (final, hist); ``studies``: phase 4d's api.run
-    results by width. The same spawns run phase 4h (a) and (b) after phase
-    4g's work (a spawn of four ranks costs ~40 s of start-up alone). Returns
-    the mesh runs' launches by kernel, summed over ranks, and phase 4h's
+    results by width; ``tti_hist``: phase 4d's TTI ensemble history. The
+    same spawns run phase 4g (e) (the mesh servers) and phase 4h (a) and (b)
+    after phase 4g's work (a spawn of four ranks costs ~40 s of start-up
+    alone). Returns the mesh runs' launches by kernel, the mesh servers'
+    mixes' launches by kernel, each summed over ranks, and phase 4h's
     results of the two- and four-rank spawns."""
     import shutil
     import tempfile
@@ -1878,8 +2061,15 @@ def mesh_phase(pop, wrappers, local, studies, card) -> dict:
             f"host build {prov['plan_build_s']:.2f} s (plan + tables); collectives "
             f"{json.dumps(prov['collectives'], sort_keys=True)}, bytes sent "
             f"{json.dumps(prov['bytes_sent'], sort_keys=True)}; {card}")
+    # (e) the simulation server on the three mesh layouts
+    stamp("mesh (e): served on a mesh")
+    served = {k: 0 for k in KERNELS}
+    for layout, ranks in (("workers", two), ("scenarios", two), ("hybrid", four)):
+        _check_served([r["served"][layout] for r in ranks], layout, studies[8], tti_hist,
+                      served, card)
     shutil.rmtree(MESH_ROOT, ignore_errors=True)
-    return total, {"two": [r["shrink"] for r in two], "four": [r["shrink"] for r in four]}
+    return total, served, {"two": [r["shrink"] for r in two],
+                           "four": [r["shrink"] for r in four]}
 
 
 SHRINK_DAY = 100  # phase 4h's device loss, at a chunk boundary (every CKPT_EVERY)
@@ -2138,6 +2328,68 @@ def interactions_only(src: str) -> int:
     return 0
 
 
+# Phase 4i: the reference's lower-level entry points (core/simulator.py's
+# views over the engine's day) at B = 1 on each backend.
+EAGER_DAYS = 14
+
+
+def lowlevel_phase(cores: dict, local: dict, eager_ms: dict, wrappers, card) -> dict:
+    """Phase 4i: ``run_eager``, ``run_scan`` (then one ``day_step``) on phase
+    4's B = 1 cores by backend, each bitwise phase 4's first EAGER_DAYS days
+    and final state (``core.run1``), one launch a day; ``run_eager``'s
+    visits / interact / update ms per day beside phase 4's eager ms/day
+    (``eager_ms``). Returns ``run_eager``'s launches by kernel."""
+    from repro_torch.core import simulator as sim_lib
+
+    eager = {k: 0 for k in KERNELS}
+    kname = {"pallas-compact": "interactions_compact", "pallas": "interactions_padded"}
+    for backend, core in cores.items():
+        hist4 = local[("none", backend)][1]
+        final, _ = core.run1(EAGER_DAYS)
+
+        def counted(fn):
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            return out, {k: w.launches for k, w in wrappers.items()}
+
+        (st, he, times), launches = counted(lambda: sim_lib.run_eager(core, EAGER_DAYS))
+        expect_launches(launches, kname[backend], EAGER_DAYS, f"run_eager on {backend}")
+        for k, v in launches.items():
+            eager[k] += v
+        static, week, cp, params = sim_lib.legacy_parts(core)
+        (scan, launches) = counted(lambda: sim_lib.run_scan(static, week, cp, params,
+                                                            core.init_state1(), EAGER_DAYS - 1))
+        expect_launches(launches, kname[backend], EAGER_DAYS - 1, f"run_scan on {backend}")
+        (stepped, launches) = counted(lambda: sim_lib.day_step(static, week, cp, params,
+                                                               scan[0]))
+        expect_launches(launches, kname[backend], 1, f"day_step on {backend}")
+        for k in sim_lib.STAT_KEYS:
+            want = hist4[k][:EAGER_DAYS]
+            if not np.array_equal(he[k], want):
+                raise AssertionError(f"run_eager on {backend}: '{k}' != phase 4's first days")
+            if not np.array_equal(scan[1][k].cpu().numpy(), want[:-1]) or \
+                    int(stepped[1][k]) != int(want[-1]):
+                raise AssertionError(f"run_scan/day_step on {backend}: '{k}' != phase 4's")
+        for f in ("health", "dwell", "cumulative", "vaccinated", "iv_active"):
+            for what, got in (("run_eager", st), ("run_scan + day_step", stepped[0])):
+                if not torch.equal(getattr(got, f), getattr(final, f)):
+                    raise AssertionError(f"{what} on {backend}: final '{f}' != run1's")
+        ms = {k: 1e3 * v for k, v in times.items()}
+        total = sum(ms.values())
+        log(f"[eager] run_eager {DATASET} B=1 on {backend}, {EAGER_DAYS} days: run_eager, "
+            f"run_scan and day_step bitwise phase 4's first {EAGER_DAYS} days and run1's "
+            f"final state, one launch a day; per phase ms/day (mean over days 1-"
+            f"{EAGER_DAYS - 1} / median / day 0): "
+            + "; ".join(f"{k} {v[1:].mean():.3f} / {np.median(v):.3f} / {v[0]:.3f}"
+                        for k, v in ms.items())
+            + f"; phases sum {total[1:].mean():.3f} ms/day against phase 4's eager day "
+            f"{eager_ms[backend]:.3f} ms/day; {card}")
+    return eager
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -2290,7 +2542,7 @@ def main() -> int:
 
     # ---- phase 4d: scenario batches, this slice's main path -----------------
     stamp("ensembles")
-    main_launches, studies, cores = ensemble_phase(pop, covid, epi, wrappers, card)
+    main_launches, studies, cores, tti_hist = ensemble_phase(pop, covid, epi, wrappers, card)
 
     # ---- phase 4e: chunked runs and recovery ------------------------------
     stamp("chunked runs")
@@ -2305,13 +2557,20 @@ def main() -> int:
     local = {("none", "pallas-compact"): (final1, hist1), ("none", "pallas"): (final_p, hist_p),
              ("tti", "pallas-compact"): tti["pallas-compact"][:2],
              ("tti", "pallas"): tti["pallas"][:2]}
-    mesh_launches, shrunk = mesh_phase(pop, wrappers, local, studies, card)
+    mesh_launches, mesh_served, shrunk = mesh_phase(pop, wrappers, local, studies, tti_hist,
+                                                    card)
 
     # ---- phase 4h: elastic shrink, the static-network oracle, detlint -------
     stamp("elastic shrink")
     shrink_launches = shrink_phase(pop, wrappers, studies, shrunk,
                                    {"pallas-compact": core, "pallas": padded_core},
                                    mid_state, card)
+
+    # ---- phase 4i: the lower-level entry points -------------------------------
+    stamp("lower-level entry points")
+    eager_launches = lowlevel_phase({"pallas-compact": core, "pallas": padded_core}, local,
+                                    {"pallas-compact": 1e3 * dt1 / DAYS,
+                                     "pallas": 1e3 * dt_p / DAYS}, wrappers, card)
 
     # ---- phase 5: reference on a small input ------------------------------
     stamp("reference")
@@ -2361,7 +2620,9 @@ def main() -> int:
             "launches": main_launches[kname],
             "served_launches": served_launches[kname],
             "mesh_launches": mesh_launches[kname],
+            "mesh_served_launches": mesh_served[kname],
             "shrink_launches": shrink_launches[kname],
+            "eager_launches": eager_launches[kname],
             "max_abs_err": max(rec["max_abs_err"],
                                *(r["max_abs_err"] for r in records[kname].values())),
             "ms": rec["ms"],

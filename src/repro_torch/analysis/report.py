@@ -1,9 +1,19 @@
 """Scenario-sweep summary tables (the reference's ``repro.analysis.report``,
 its sweep part): per-scenario summary rows from a history or a RunResult's
 observables, and their markdown tables, used by ``launch/sweep.py``.
+
+    python -m repro_torch.analysis.report --result run.json
+
+renders a saved RunResult (``RunResult.save``, or the sweep CLI's
+``--out``): its sweep table and its mean/CI band table. The reference's
+``--section dryrun|roofline`` tables belong to the LM tooling, which the
+port does not have yet (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
+
+import argparse
+import sys
 
 import numpy as np
 
@@ -89,3 +99,30 @@ def sweep_table(rows, file=None):
             f"{r['interactions']} |",
             file=file,
         )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.analysis.report")
+    ap.add_argument("--dir", default="artifacts/dryrun")
+    ap.add_argument("--section", default="all")
+    ap.add_argument("--result", default=None,
+                    help="render the sweep + mean/CI tables of a RunResult JSON "
+                         "(repro_torch.api.run output)")
+    args = ap.parse_args(argv)
+    if args.result:
+        from repro_torch.api import RunResult  # cycle-free at call time
+
+        result = RunResult.load(args.result)
+        print(f"\n### {result.spec.name} (engine={result.provenance['engine']})\n")
+        sweep_table(summarize_result(result))
+        print()
+        mean_ci_table(result, every=max(1, result.days // 20))
+        return 0
+    print(f"report: --section {args.section} renders the LM tooling's dry-run and "
+          "roofline tables, which the port does not have yet (ROADMAP queue 1 item 9); "
+          "pass --result run.json to render a RunResult", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

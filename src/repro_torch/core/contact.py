@@ -51,6 +51,33 @@ class FixedProbability:
         return np.full_like(N, np.float32(self.p))
 
 
+def max_occupancy_from_visits(
+    num_locations: int,
+    visit_loc: np.ndarray,
+    visit_start: np.ndarray,
+    visit_end: np.ndarray,
+) -> np.ndarray:
+    """Peak simultaneous occupancy per location from one day's visits: the
+    literal O(E) event loop (+1 at each arrival, -1 at each departure,
+    running max per location), the readable specification of the
+    tie-breaking rule (departures before arrivals at equal times, so
+    touching visits never overlap). Production code uses
+    :func:`max_occupancy_fast`, which gives the same array."""
+    occ = np.zeros((num_locations,), np.int32)
+    if len(visit_loc) == 0:
+        return occ
+    times = np.concatenate([visit_start, visit_end])
+    deltas = np.concatenate(
+        [np.ones_like(visit_start, np.int32), -np.ones_like(visit_end, np.int32)])
+    locs = np.concatenate([visit_loc, visit_loc])
+    order = np.lexsort((deltas, times))  # deltas=-1 (departure) sorts first
+    cur = np.zeros((num_locations,), np.int32)
+    for d, loc in zip(deltas[order], locs[order]):
+        cur[loc] += d
+        occ[loc] = max(occ[loc], cur[loc])
+    return occ
+
+
 def max_occupancy_fast(
     num_locations: int,
     visit_loc: np.ndarray,

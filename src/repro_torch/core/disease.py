@@ -219,3 +219,50 @@ def update_health_tables(
     new_dwell = torch.where(mean_new >= ABSORBING_DWELL, ABSORBING_DWELL, new_dwell)
     dwell_out = torch.where(changed, new_dwell, dwell_after)
     return state_new, dwell_out
+
+
+# ----------------------------------------------------------------------------
+# One scenario, model objects: the reference's convenience wrappers
+# ----------------------------------------------------------------------------
+
+
+def _one(model: DiseaseModel, state: torch.Tensor, seed, day):
+    """The model's tables with a scenario axis of 1, the hash words (1, 1)
+    and the person ids ``arange(P)`` on ``state``'s device."""
+    dev = state.device
+    t = lambda a, dtype: torch.as_tensor(np.asarray(a), device=dev).to(dtype)[None]
+    word = lambda x: torch.as_tensor(x, device=dev).to(torch.int64).reshape(1, 1)
+    tables = (t(model.cum_trans, torch.float32), t(model.dwell_mean_days, torch.float32),
+              t(model.susceptibility, torch.float32), t(model.entry_state, torch.int64))
+    pid = torch.arange(state.shape[-1], dtype=torch.int64, device=dev)
+    return tables, word(seed), word(day), pid
+
+
+def update_health(model: DiseaseModel, state: torch.Tensor, dwell_left: torch.Tensor,
+                  newly_infected: torch.Tensor, seed, day):
+    """:func:`update_health_tables` for one scenario from its model object:
+    ``state``/``dwell_left``/``newly_infected`` are (P,), ``seed`` and
+    ``day`` ints or 0-d tensors, the draws keyed by person ids ``arange(P)``."""
+    tables, seed_w, day_w, pid = _one(model, state, seed, day)
+    health, dwell = update_health_tables(*tables, state[None], dwell_left[None],
+                                         newly_infected[None], seed_w, day_w, pid)
+    return health[0], dwell[0]
+
+
+def seed_infections(model: DiseaseModel, state: torch.Tensor, dwell_left: torch.Tensor,
+                    num_to_seed: int, seed, day):
+    """Infect the ``num_to_seed`` susceptible people with the smallest
+    SEED_CHOICE draws (ties at the threshold all go) and update their health.
+    The threshold is the k-th smallest draw among the susceptible, picked by
+    the engine's own rule (``engine/topology.py:LocalTopology.seed_threshold``),
+    so the seeded set is bitwise the engine's; ``num_to_seed`` <= 0 seeds
+    nobody."""
+    from repro_torch.engine.topology import LocalTopology  # cycle-free at call time
+
+    (_, _, sus_table, _), seed_w, day_w, pid = _one(model, state, seed, day)
+    sus = sus_table.gather(1, state.long()[None]) > 0.0
+    u = torch.where(sus, rng.uniform(seed_w, rng.SEED_CHOICE, day_w, pid), 2.0)
+    k = torch.tensor([int(num_to_seed)], dtype=torch.int64, device=state.device)
+    thresh = LocalTopology().seed_threshold(u, k, state.shape[-1])
+    chosen = (u <= thresh[:, None]) & sus & (num_to_seed > 0)
+    return update_health(model, state, dwell_left, chosen[0], seed, day)

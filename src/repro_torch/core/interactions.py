@@ -10,6 +10,10 @@ them once, as the day step's ``week`` dict on a device.
 ``person_slot_table`` adds what the deterministic exposure combine needs:
 for every day of the week and every person, that person's visit slots in
 ascending slot order, padded with the out-of-range slot ``V``.
+
+:func:`day_exposure` is one scenario's interaction pass for a day of that
+week, the reference's function of the same name: a view over the engine's
+phases 2-4 (``engine/day.py:interact``) with a scenario axis of 1.
 """
 
 from __future__ import annotations
@@ -120,3 +124,36 @@ def week_from_numpy(arrays: dict, num_people: int, *, device) -> dict:
         "pa": t("pa", torch.int32),
         "slots": torch.as_tensor(person_slot_table(pid, num_people), device=device),
     }
+
+
+def day_exposure(week: dict, dow, num_people: int, person_sus_val: torch.Tensor,
+                 person_inf_val: torch.Tensor, contact_prob: torch.Tensor,
+                 visit_ok: torch.Tensor, loc_open: torch.Tensor, tau, seed, contact_day,
+                 backend: str = "pallas-compact", block_size: int = 128):
+    """One scenario's exposure for a day of the week: the per-person
+    propensity A (P,) and the day's total contacts (an int64 0-d tensor).
+
+    ``week`` is the day loop's week dict (:func:`week_from_numpy`), ``dow``
+    the day of the week, ``person_*_val`` the (P,) channels already scaled
+    by the interventions, ``contact_prob`` the (L,) per-location p (each
+    visit reads its location's), ``visit_ok`` (P,) and ``loc_open`` (L,)
+    the intervention masks, ``tau`` the prefactor and ``seed`` /
+    ``contact_day`` the words of the contact hash (the absolute day, or the
+    day of the week on a static network). ``backend`` routes the pass
+    through ``kernels/interactions/ops.py``: the CUDA interaction kernel
+    on the card, its plain version on the CPU, as the day loop does."""
+    from repro_torch.engine import day as day_lib  # cycle-free at call time
+    from repro_torch.engine.topology import LocalTopology
+
+    dev = person_sus_val.device
+    word = lambda x, dtype=torch.int64: torch.as_tensor(x, device=dev).to(dtype).reshape(1)
+    dow = word(dow)
+    at_dow = lambda k: week[k].index_select(0, dow)[0]
+    p_v = contact_prob[at_dow("loc").long()]
+    take = lambda k: p_v if k == "p" else at_dow(k)
+    static = day_lib.EngineStatic(num_people=num_people, num_locations=loc_open.shape[-1],
+                                  block_size=block_size, iv_slots=(), backend=backend)
+    chans = torch.stack([person_sus_val, person_inf_val, visit_ok.to(torch.float32)], dim=-1)
+    A, cnt, _, _ = day_lib.interact(LocalTopology(), static, take, chans[None], loc_open[None],
+                                    word(seed), word(contact_day), word(tau, torch.float32))
+    return A[0], cnt.sum(dtype=torch.int64)

@@ -43,6 +43,9 @@ class DayRange:
     start: int
     end: int = 10**9
 
+    def __call__(self, day, stats, was_active):
+        return (day >= self.start) & (day < self.end)
+
 
 @dataclasses.dataclass(frozen=True)
 class CaseThreshold:
@@ -52,6 +55,13 @@ class CaseThreshold:
     on: float
     off: Optional[float] = None
     metric: str = "infectious"  # or "cumulative"
+
+    def __call__(self, day, stats, was_active):
+        x = stats[self.metric]
+        rising = x >= self.on
+        if self.off is None:
+            return was_active | rising
+        return torch.where(was_active, x >= self.off, rising)
 
 
 # --------------------------------------------------------------------------
@@ -203,6 +213,81 @@ def check_unique_names(interventions) -> None:
                 "interventions."
             )
         seen.add(iv.name)
+
+
+# --------------------------------------------------------------------------
+# Object formulation: one scenario's classic interventions with their
+# selectors resolved to masks, folded with Python branches on the action.
+# The day loop runs the stacked formulation below; this one is the readable
+# specification it is held to (tests/test_torch_lowlevel.py).
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CompiledIntervention:
+    """Intervention with selector masks resolved to tensors."""
+
+    name: str
+    trigger: object
+    action: object
+    people: torch.Tensor  # (P,) bool
+    locations: torch.Tensor  # (L,) bool
+
+
+def compile_interventions(interventions: Sequence[Intervention], pop, seed, *,
+                          device="cuda") -> list:
+    """Resolve each classic intervention's selector on ``pop`` (hash draws
+    keyed by ``seed``) to masks on ``device``."""
+    check_unique_names(interventions)
+    return [CompiledIntervention(
+        name=iv.name, trigger=iv.trigger, action=iv.action,
+        people=torch.as_tensor(iv.selector.people_mask(pop, seed), device=device),
+        locations=torch.as_tensor(iv.selector.locations_mask(pop, seed), device=device),
+    ) for iv in interventions]
+
+
+def apply_interventions(compiled: Sequence[CompiledIntervention], active, vaccinated,
+                        num_people: int, num_locations: int):
+    """Fold active interventions into the day's masks and multipliers, for
+    one scenario: ``active`` (K,) bool (trigger states from the end of the
+    previous day), ``vaccinated`` (P,) bool. Returns (visit_ok (P,),
+    loc_open (L,), sus_mult (P,), inf_mult (P,), new_vaccinated (P,));
+    effects are recomputed from base attributes each day, so "undo" is
+    automatic."""
+    dev = vaccinated.device
+    visit_ok = torch.ones((num_people,), dtype=torch.bool, device=dev)
+    loc_open = torch.ones((num_locations,), dtype=torch.bool, device=dev)
+    sus_mult = torch.ones((num_people,), dtype=torch.float32, device=dev)
+    inf_mult = torch.ones((num_people,), dtype=torch.float32, device=dev)
+    for k, iv in enumerate(compiled):
+        on, a = active[k], iv.action
+        if isinstance(a, Isolate):
+            visit_ok = visit_ok & ~(on & iv.people)
+        elif isinstance(a, CloseLocations):
+            loc_open = loc_open & ~(on & iv.locations)
+        elif isinstance(a, ScaleSusceptibility):
+            sus_mult = sus_mult * torch.where(on & iv.people, a.factor, 1.0)
+        elif isinstance(a, ScaleInfectivity):
+            inf_mult = inf_mult * torch.where(on & iv.people, a.factor, 1.0)
+        elif isinstance(a, Vaccinate):
+            vaccinated = vaccinated | (on & iv.people)
+        else:
+            raise TypeError(f"unknown action {a!r}")
+    # Vaccination's effect persists whatever the trigger says today.
+    for iv in compiled:
+        if isinstance(iv.action, Vaccinate):
+            sus_mult = sus_mult * torch.where(vaccinated & iv.people,
+                                              1.0 - iv.action.efficacy, 1.0)
+            break  # one vaccinated flag — first Vaccinate defines efficacy
+    return visit_ok, loc_open, sus_mult, inf_mult, vaccinated
+
+
+def evaluate_triggers(compiled: Sequence[CompiledIntervention], day, stats, active):
+    """End-of-day trigger evaluation (Algorithm 2, line 34): each trigger
+    called on the day, the day's statistics and its slot's state."""
+    if not compiled:
+        return active
+    return torch.stack([iv.trigger(day, stats, active[k]) for k, iv in enumerate(compiled)])
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,17 @@ axis (``engine/core.py:stack_params``), B = 1 included, and the day step
 runs on the stacked ``(B, ...)`` leaves, as the reference's vmapped day step
 does.
 
+The reference's pure functions of one scenario are here too, as views over
+the engine's day (``engine/day.py``) with a scenario axis of 1, so each is
+bitwise equal to ``EngineCore`` for the same core when it has no
+test-trace-isolate slot (the reference path carries none):
+``SimStatic``, ``phase_visits`` / ``phase_interact`` / ``phase_update``
+(the paper's three phases), ``day_step``, ``run_scan`` (a Python loop over
+days, the stats stacked day-major), ``legacy_parts`` (their arguments from
+a B = 1 local core) and ``run_eager``, the day loop with a wall time per
+phase (on the card each phase ends in a synchronise before its clock is
+read).
+
 ``params_from_numpy`` / ``state_from_numpy`` take the reference package's
 ``SimParams`` / ``SimState`` as nested dicts of numpy arrays (e.g.
 ``dataclasses.asdict(jax.device_get(x))``), so both packages can run a day
@@ -21,7 +32,8 @@ from one identical state, per-agent intervention fields (``sym_table``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -123,6 +135,20 @@ def build_params(
     return iv_slots, pa_slots, params
 
 
+@dataclasses.dataclass(frozen=True)
+class SimStatic:
+    """What the pure day functions branch on in Python: shapes, the classic
+    intervention slots and the interaction pass (``backend`` one of
+    ``kernels/interactions/ops.py:BACKENDS``, on blocks of ``block_size``
+    visits, the size the week was built with)."""
+
+    num_people: int
+    num_locations: int
+    iv_slots: tuple  # tuple[iv_lib.IvSlotStatic, ...]
+    backend: str = "pallas-compact"
+    block_size: int = 128
+
+
 def init_state(disease: disease_lib.DiseaseModel, num_people: int,
                num_iv_slots: int, *, device) -> SimState:
     health, dwell = disease_lib.initial_health(disease, num_people, device=device)
@@ -169,3 +195,144 @@ def params_from_numpy(d: dict, *, device) -> SimParams:
 def state_from_numpy(d: dict, *, device) -> SimState:
     """SimState from the reference's SimState as a numpy dict."""
     return SimState(**_tensors(d, _STATE_DTYPES, device))
+
+
+# --------------------------------------------------------------------------
+# One scenario's pure day: views over engine/day.py with a scenario axis of 1
+# --------------------------------------------------------------------------
+
+
+def _engine_static(static: SimStatic):
+    from repro_torch.engine import day as day_lib  # cycle-free at call time
+
+    return day_lib.EngineStatic(num_people=static.num_people,
+                                num_locations=static.num_locations,
+                                block_size=static.block_size, iv_slots=static.iv_slots,
+                                backend=static.backend)
+
+
+def phase_visits(static: SimStatic, params: SimParams, state: SimState):
+    """Phase 1: intervention masks and per-person epidemiological values.
+    Returns (visit_ok (P,), loc_open (L,), person_sus (P,), person_inf (P,),
+    vaccinated (P,))."""
+    from repro_torch.engine import day as day_lib  # cycle-free at call time
+    from repro_torch.engine.core import stack_params
+
+    out = day_lib.visits(_engine_static(static), stack_params([params]),
+                         stack_params([state]), static.num_people)
+    return tuple(t[0] for t in out)
+
+
+def phase_interact(static: SimStatic, week: dict, contact_prob: torch.Tensor,
+                   params: SimParams, state: SimState, visit_ok, loc_open,
+                   person_sus, person_inf):
+    """Phase 2: the block-scheduled interaction pass and the exposure
+    combine. Returns (A (P,), contacts ())."""
+    from repro_torch.core import interactions as inter_lib  # cycle-free at call time
+
+    dow = state.day % pop_lib.DAYS_PER_WEEK
+    # a static network keys its draws by day of the week: the same every week
+    contact_day = torch.where(params.static_network, dow, state.day)
+    return inter_lib.day_exposure(
+        week, dow, static.num_people, person_sus, person_inf, contact_prob, visit_ok,
+        loc_open, params.tau_eff, params.seed, contact_day, backend=static.backend,
+        block_size=static.block_size)
+
+
+def phase_update(static: SimStatic, params: SimParams, state: SimState, A, contacts,
+                 vaccinated):
+    """Phase 3: infection draws, outbreak seeding, the FSA update and the
+    triggers. Returns ``(new_state, stats)``, ``stats`` 0-d int64 tensors
+    keyed by STAT_KEYS (``edges`` is ``contacts``; the per-agent stats are
+    zero)."""
+    from repro_torch.engine import day as day_lib  # cycle-free at call time
+    from repro_torch.engine.core import index_params, stack_params
+    from repro_torch.engine.topology import LocalTopology
+
+    c = contacts.reshape(1).to(torch.int64)
+    ex = day_lib.Exposure(A=A[None], cnt=c[:, None], edges=c, vaccinated=vaccinated[None])
+    new_state, stats = day_lib.update(LocalTopology(), _engine_static(static),
+                                      stack_params([params]), stack_params([state]), ex)
+    return index_params(new_state, 0), {k: v[0] for k, v in stats.items()}
+
+
+def day_step(static: SimStatic, week: dict, contact_prob: torch.Tensor,
+             params: SimParams, state: SimState):
+    """One simulated day of one scenario: ``(new_state, stats)``."""
+    visit_ok, loc_open, person_sus, person_inf, vaccinated = phase_visits(
+        static, params, state)
+    A, contacts = phase_interact(static, week, contact_prob, params, state,
+                                 visit_ok, loc_open, person_sus, person_inf)
+    return phase_update(static, params, state, A, contacts, vaccinated)
+
+
+def run_scan(static: SimStatic, week: dict, contact_prob: torch.Tensor,
+             params: SimParams, state: SimState, days: int):
+    """``days`` days of :func:`day_step`: ``(final_state, stats)``, each
+    stat a (days,) int64 tensor on the run's device, as the reference's
+    scan stacks them."""
+    rows = []
+    for _ in range(days):
+        state, stats = day_step(static, week, contact_prob, params, state)
+        rows.append(stats)
+    return state, {k: torch.stack([r[k] for r in rows]) if rows
+                   else torch.zeros((0,), dtype=torch.int64, device=state.day.device)
+                   for k in STAT_KEYS}
+
+
+def legacy_parts(core):
+    """``(static, week, contact_prob, params)`` of the pure functions from a
+    B = 1 ``layout="local"`` EngineCore: the arrays its day loop runs on,
+    params unbatched."""
+    from repro_torch.engine.core import index_params  # cycle-free at call time
+
+    if core.layout != "local" or core.num_real != 1:
+        raise ValueError("legacy_parts() needs a B=1 local EngineCore, got layout "
+                         f"'{core.layout}' with {core.num_real} scenarios")
+    static = SimStatic(num_people=core.pop.num_people, num_locations=core.pop.num_locations,
+                       iv_slots=core.iv_slots, backend=core.static.backend,
+                       block_size=core.block_size)
+    contact_prob = torch.as_tensor(core.pop.contact_prob, device=core.device).to(torch.float32)
+    return static, core.week, contact_prob, index_params(core.params, 0)
+
+
+def run_eager(core, days: int, state: Optional[SimState] = None):
+    """The day loop one phase at a time, with each phase's wall time.
+
+    ``core`` is a B = 1 ``layout="local"`` EngineCore; ``state`` (unbatched)
+    defaults to its initial state. Returns ``(state, hist, times)``:
+    ``hist`` maps STAT_KEYS to host (days,) arrays, ``times`` maps
+    ``"visits"``, ``"interact"`` and ``"update"`` to (days,) arrays of
+    seconds. On the card each phase ends in ``torch.cuda.synchronize()``
+    before its clock is read, so a phase's time is its host dispatch and
+    its device work. The trajectory is bitwise ``core.run1``'s."""
+    static, week, contact_prob, params = legacy_parts(core)
+    state = state if state is not None else core.init_state1()
+    on_card = core.device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(core.device)) if on_card else (lambda: None)
+    rows, times = [], {"visits": [], "interact": [], "update": []}
+    for _ in range(days):
+        t0 = time.perf_counter()
+        visit_ok, loc_open, ps, pi, vacc = phase_visits(static, params, state)
+        sync()
+        t1 = time.perf_counter()
+        A, contacts = phase_interact(static, week, contact_prob, params, state,
+                                     visit_ok, loc_open, ps, pi)
+        sync()
+        t2 = time.perf_counter()
+        state, stats = phase_update(static, params, state, A, contacts, vacc)
+        sync()
+        t3 = time.perf_counter()
+        times["visits"].append(t1 - t0)
+        times["interact"].append(t2 - t1)
+        times["update"].append(t3 - t2)
+        rows.append(torch.stack([stats[k] for k in STAT_KEYS]))
+    h = (torch.stack(rows).cpu().numpy() if rows
+         else np.zeros((0, len(STAT_KEYS)), np.int64))
+    hist = {k: np.ascontiguousarray(h[:, i]) for i, k in enumerate(STAT_KEYS)}
+    return state, hist, {k: np.asarray(v) for k, v in times.items()}
+
+
+def attack_rate(hist) -> float:
+    """The final cumulative infection count of a history."""
+    return float(hist["cumulative"][-1])

@@ -37,6 +37,15 @@ local layout:
 :func:`pad_params` and :func:`init_state_padded` pad the person axis to
 ``W * Pw``; pad people sit in the disease's absorbing non-susceptible state
 with zero betas and outside every selector, so they never take part.
+
+The reference's pure distributed step is here too, as a view over the
+engine's day on a :class:`~repro_torch.engine.topology.MeshTopology`:
+``DistStatic`` / ``make_dist_static``, ``dist_init_state``,
+``dist_day_step`` and ``dist_run_scan``, run by every rank of a worker mesh
+on its shard (:func:`local_shard`), bitwise equal to the engine's
+``workers`` layout; ``dist_param_specs`` / ``dist_state_specs`` say, per
+leaf, which dimension the worker axis ``AXIS`` splits, as the reference's
+``PartitionSpec`` trees do.
 """
 
 from __future__ import annotations
@@ -48,8 +57,13 @@ import torch
 
 from repro_torch.core import disease as disease_lib
 from repro_torch.core import exchange as ex_lib
+from repro_torch.core import interventions as iv_lib
 from repro_torch.core import population as pop_lib
 from repro_torch.core import simulator as sim_lib
+
+#: The mesh axis the people and locations are split over.
+AXIS = "workers"
+STAT_KEYS = sim_lib.STAT_KEYS
 
 
 @dataclasses.dataclass
@@ -394,3 +408,128 @@ def init_state_padded(disease: disease_lib.DiseaseModel, plan: DistPlan,
                 "and break the layouts' bitwise equality")
         state.health[plan.num_people:] = int(non_sus[0])
     return state
+
+
+# --------------------------------------------------------------------------
+# The pure distributed day: views over the engine's day on a MeshTopology
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DistStatic:
+    """What the distributed step branches on: the partition's geometry, the
+    classic intervention slots and the interaction pass."""
+
+    num_people: int  # real P (before padding)
+    num_locations: int
+    num_workers: int
+    people_per_worker: int  # Pw
+    visits_per_worker: int  # Vw
+    block_size: int
+    seed_topk: int  # per-worker candidates of the seeding threshold
+    iv_slots: tuple  # tuple[iv_lib.IvSlotStatic, ...]
+    backend: str = "pallas-compact"
+
+
+def make_dist_static(plan: DistPlan, num_locations: int, iv_slots: tuple,
+                     backend: str = "pallas-compact", max_seed_per_day: int = 10) -> DistStatic:
+    """``seed_topk`` covers the largest ``seed_per_day`` any scenario runs
+    with (clamped to the shard), so the seeding threshold is exact."""
+    return DistStatic(
+        num_people=plan.num_people, num_locations=num_locations,
+        num_workers=plan.num_workers, people_per_worker=plan.people_per_worker,
+        visits_per_worker=plan.visits_per_worker, block_size=plan.block_size,
+        seed_topk=max(1, min(int(max_seed_per_day), plan.people_per_worker)),
+        iv_slots=iv_slots, backend=backend)
+
+
+def dist_init_state(disease: disease_lib.DiseaseModel, plan: DistPlan, num_iv_slots: int,
+                    *, device="cuda") -> sim_lib.SimState:
+    """The whole worker-padded initial state (:func:`init_state_padded`);
+    :func:`local_shard` cuts a worker's shard from it."""
+    return init_state_padded(disease, plan, num_iv_slots, device=device)
+
+
+def local_shard(tree, plan: DistPlan, worker: int):
+    """Worker ``worker``'s shard of one scenario's padded SimParams or
+    SimState: its ``Pw`` people on every person leaf, the rest whole."""
+    from repro_torch.engine.core import PERSON_PARAM_FIELDS, PERSON_STATE_FIELDS
+
+    Pw = plan.people_per_worker
+    person = PERSON_PARAM_FIELDS + PERSON_STATE_FIELDS
+
+    def walk(obj):
+        return type(obj)(**{
+            f.name: walk(v) if dataclasses.is_dataclass(v) else
+            (v[..., worker * Pw:(worker + 1) * Pw] if f.name in person else v)
+            for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)})
+
+    return walk(tree)
+
+
+def dist_day_step(static: DistStatic, plan, week: dict, params: sim_lib.SimParams,
+                  state: sim_lib.SimState):
+    """One distributed day on this rank's shard; pure in (params, state).
+
+    ``plan`` is this rank's :class:`~repro_torch.launch.mesh.WorkerMesh` (a
+    ``workers`` mesh of ``static.num_workers``): the exchange runs over its
+    groups, and its routing tables ride in ``week``
+    (:func:`week_device_arrays` of this rank's worker). ``params`` and
+    ``state`` are unbatched, their person leaves this worker's (Pw,) shard.
+    Draws key on global person ids, so the day is bitwise the engine's
+    ``workers`` layout and the local run. Returns ``(new_state, stats)``
+    with 0-d int64 stats summed over the workers (the per-agent stats
+    zero)."""
+    from repro_torch.engine import day as day_lib  # cycle-free at call time
+    from repro_torch.engine.core import index_params, stack_params
+    from repro_torch.engine.topology import MeshTopology
+
+    estatic = day_lib.EngineStatic(
+        num_people=static.num_people, num_locations=static.num_locations,
+        block_size=static.block_size, iv_slots=static.iv_slots, backend=static.backend)
+    topo = MeshTopology(plan, seed_topk=static.seed_topk)
+    new_state, stats = day_lib.day_step(topo, estatic, week, stack_params([params]),
+                                        stack_params([state]))
+    return index_params(new_state, 0), {k: v[0] for k, v in stats.items()}
+
+
+def dist_run_scan(static: DistStatic, plan, week: dict, params: sim_lib.SimParams,
+                  state: sim_lib.SimState, days: int):
+    """``days`` days of :func:`dist_day_step`: ``(final_state, stats)``,
+    each stat a (days,) int64 tensor."""
+    rows = []
+    for _ in range(days):
+        state, stats = dist_day_step(static, plan, week, params, state)
+        rows.append(stats)
+    return state, {k: torch.stack([r[k] for r in rows]) if rows
+                   else torch.zeros((0,), dtype=torch.int64, device=state.day.device)
+                   for k in STAT_KEYS}
+
+
+def _spec(batch_axis, *axes) -> tuple:
+    return (batch_axis, *axes) if batch_axis is not None else tuple(axes)
+
+
+def dist_param_specs(batch_axis=None) -> sim_lib.SimParams:
+    """SimParams-shaped tree of partition specs for the worker-padded
+    layout: each leaf a tuple naming, per dimension, the mesh axis that
+    splits it (None: whole), the entries of the reference's
+    ``PartitionSpec``. ``batch_axis`` prepends a scenario axis to every
+    leaf (the hybrid mesh)."""
+    s = lambda *axes: _spec(batch_axis, *axes)
+    iv = iv_lib.IvParams(
+        enabled=s(), day_start=s(), day_end=s(), thresh_on=s(), thresh_off=s(),
+        factor=s(), people=s(None, AXIS), locations=s(), pa_enabled=s(), pa_start=s(),
+        pa_tests=s(), pa_iso=s(), pa_trace_iso=s(), pa_people=s(None, AXIS))
+    return sim_lib.SimParams(
+        seed=s(), tau_eff=s(), sus_table=s(), inf_table=s(), sym_table=s(),
+        cum_trans=s(), dwell_mean=s(), entry_state=s(), beta_sus=s(AXIS),
+        beta_inf=s(AXIS), seed_per_day=s(), seed_days=s(), static_network=s(), iv=iv)
+
+
+def dist_state_specs(batch_axis=None) -> sim_lib.SimState:
+    """SimState-shaped tree of partition specs (:func:`dist_param_specs`)."""
+    s = lambda *axes: _spec(batch_axis, *axes)
+    return sim_lib.SimState(
+        day=s(), health=s(AXIS), dwell=s(AXIS), cumulative=s(), iv_active=s(),
+        vaccinated=s(AXIS), tested=s(AXIS), traced=s(AXIS), isolated_until=s(AXIS))

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import rng
@@ -29,6 +30,17 @@ class TransmissionModel:
     time_unit: float = 1.0  # multiplier converting visit time units -> seconds
 
 
+def pair_propensity(tm: TransmissionModel, overlap: torch.Tensor,
+                    sus_sigma: torch.Tensor, inf_iota: torch.Tensor) -> torch.Tensor:
+    """rho of Eq. 2 for contacts overlapping ``overlap`` seconds:
+    ``sus_sigma`` is sigma(X_i) * beta_sigma(p_i) of the susceptible side,
+    ``inf_iota`` iota(X_j) * beta_iota(p_j) of the infectious side. The
+    prefactor is rounded to float32 first, as the reference rounds it."""
+    tau_eff = torch.tensor(float(np.float32(tm.tau * tm.time_unit)), dtype=torch.float32,
+                           device=overlap.device)
+    return overlap * tau_eff * sus_sigma * inf_iota
+
+
 def sample_infections(total_propensity: torch.Tensor, seed, day,
                       pid: torch.Tensor) -> torch.Tensor:
     """Bernoulli(1 - exp(-A)) per person, via the paper's -log(u)/A < 1 form.
@@ -37,3 +49,8 @@ def sample_infections(total_propensity: torch.Tensor, seed, day,
     u = rng.uniform(seed, rng.INFECT, day, pid)
     # -log(u)/A < 1  <=>  u > exp(-A); guard A == 0 (no exposure).
     return (total_propensity > 0.0) & (u > torch.exp(-total_propensity))
+
+
+def infection_probability(total_propensity: torch.Tensor) -> torch.Tensor:
+    """1 - exp(-A): the chance that exposure A infects."""
+    return 1.0 - torch.exp(-total_propensity)

@@ -80,9 +80,13 @@ from repro_torch.kernels.interactions import ops as iops
 from repro_torch.launch import mesh as mesh_lib
 
 LAYOUTS = ("local", "workers", "scenarios", "hybrid")
-#: The mesh axes each layout shards (the reference's mesh axis names).
-LAYOUT_AXES = {"local": (), "workers": ("workers",), "scenarios": ("scenarios",),
-               "hybrid": ("workers", "scenarios")}
+#: The mesh axis names (the reference's): people and locations split over
+#: ``WORKER_AXIS``, the scenario batch over ``SCENARIO_AXIS``.
+WORKER_AXIS = sd.AXIS  # "workers"
+SCENARIO_AXIS = "scenarios"
+#: The mesh axes each layout shards.
+LAYOUT_AXES = {"local": (), "workers": (WORKER_AXIS,), "scenarios": (SCENARIO_AXIS,),
+               "hybrid": (WORKER_AXIS, SCENARIO_AXIS)}
 #: SimParams / IvParams fields with a person axis (last).
 PERSON_PARAM_FIELDS = ("beta_sus", "beta_inf", "people", "pa_people")
 
@@ -287,8 +291,11 @@ class EngineCore:
     locations are split by the paper's load-balanced location partition;
     ``plan`` passes a :class:`~repro_torch.core.simulator_dist.DistPlan`
     already built for this population and worker count (cores of one
-    population share it). ``plan_build_s`` is the host seconds this rank
-    spent on the plan and its tables.
+    population share it); ``week`` likewise passes the week's device arrays
+    (``self.week`` of a core of the same population, block size, device and
+    placement: on a worker mesh, this rank's tables), which the day loop
+    only reads. ``plan_build_s`` is the host seconds this rank spent on the
+    plan and its tables (or the local week).
 
     ``max_runners`` bounds the warm runners held (one per ``(days,
     observables)`` key, LRU-evicted beyond it; ``None`` = unbounded).
@@ -307,6 +314,7 @@ class EngineCore:
         workers: Optional[int] = None,
         scen_shards: Optional[int] = None,
         plan: Optional[sd.DistPlan] = None,
+        week: Optional[dict] = None,
         block_size: int = 128,
         device="cuda",
         backend: str = "pallas-compact",
@@ -343,13 +351,13 @@ class EngineCore:
                     f"plan for {plan.num_workers} workers, block {plan.block_size}, "
                     f"{plan.num_people} people does not fit this core")
             self.plan = plan
-            self.week = sd.week_device_arrays(self.plan, self.mesh.worker_index,
-                                              device=self.device)
+            self.week = week if week is not None else sd.week_device_arrays(
+                self.plan, self.mesh.worker_index, device=self.device)
             params_list = [sd.pad_params(p, self.plan) for p in params_list]
             self.people_per_worker = self.plan.people_per_worker
         else:
             self.plan = None
-            self.week = local_week_arrays(
+            self.week = week if week is not None else local_week_arrays(
                 pop, inter_lib.build_week_data(pop, block_size), device=self.device)
             self.people_per_worker = pop.num_people
         self.plan_build_s = time.perf_counter() - t0
@@ -429,6 +437,12 @@ class EngineCore:
                 for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)})
 
         return walk(tree)
+
+    def shard_params(self, params: sim_lib.SimParams) -> sim_lib.SimParams:
+        """This rank's shard of stacked params over the padded batch (person
+        leaves padded to ``W * Pw`` on a worker mesh), as ``self.params``
+        is; identity on one device."""
+        return self._shard(params, PERSON_PARAM_FIELDS)
 
     def full_init_state(self) -> sim_lib.SimState:
         """The whole initial state: the real scenarios, the person axis padded
@@ -563,8 +577,8 @@ class EngineCore:
         batch, ``hist`` (days, len(STAT_KEYS), B) on the device. On the
         card its first call of a shape captures a CUDA graph and later calls
         replay it. On a mesh layout it is the eager loop: a graph cannot
-        hold the day's ``torch.distributed`` collectives, so the serving tier
-        stays on the local layout. Public so the serving
+        hold the day's ``torch.distributed`` collectives, so a mesh
+        server's every rank runs it eagerly. Public so the serving
         tier wraps the steady-state loop in
         :class:`repro_torch.analysis.capture.recompile_sentinel` around the
         runner that actually runs."""

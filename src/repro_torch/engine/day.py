@@ -94,6 +94,66 @@ def _look(table, idx):
     return table.gather(1, idx.long())
 
 
+def visits(static: EngineStatic, params: sim_lib.SimParams, state: sim_lib.SimState,
+           num_people: int):
+    """Phase 1 of a day: the classic interventions folded into masks and
+    multipliers, and the person channels. Returns (visit_ok (B, P),
+    loc_open (B, L), person_sus (B, P), person_inf (B, P), vaccinated
+    (B, P)) for ``num_people`` people (this shard's on a mesh)."""
+    visit_ok, loc_open, sus_mult, inf_mult, vaccinated = iv_lib.apply_iv_params(
+        static.iv_slots, params.iv, state.iv_active, state.vaccinated,
+        num_people, static.num_locations,
+    )
+    person_sus = _look(params.sus_table, state.health) * params.beta_sus * sus_mult
+    person_inf = _look(params.inf_table, state.health) * params.beta_inf * inf_mult
+    return visit_ok, loc_open, person_sus, person_inf, vaccinated
+
+
+def interact(topo, static: EngineStatic, take, person_chans: torch.Tensor,
+             loc_open: torch.Tensor, seed: torch.Tensor, contact_day: torch.Tensor,
+             tau: torch.Tensor):
+    """Phases 2-4 of a day: dispatch of the person channels to visit slots,
+    the interaction pass (one launch for the batch) and the exposure
+    combine.
+
+    ``take(key)`` reads the week's ``key`` at today's day of the week;
+    ``person_chans`` (B, P, ch) stacks sus, inf and visit_ok as float, and
+    when a slot traces, today's positives as tracing sources; ``seed`` and
+    ``contact_day`` are the (B,) words of the contact hash, ``tau`` the (B,)
+    prefactor. Returns ``(A (B, P), cnt (B, V), edges (B,), trc_p)``,
+    ``trc_p`` the (B, P) traced contacts, or None when nothing traces."""
+    pid, loc = take("pid"), take("loc")
+    route = topo.day_route(take)
+    visit_vals = topo.dispatch(pid, person_chans, route)  # (B, V, ch)
+    sus_v, inf_v, ok_v = visit_vals[..., 0], visit_vals[..., 1], visit_vals[..., 2]
+    open_v = loc_open[:, loc.clamp(max=static.num_locations - 1)]
+    active = (pid >= 0) & (ok_v > 0.0) & open_v
+    eff_pid = torch.where(active, pid, -1)
+    sus_v = sus_v * active
+    inf_v = inf_v * active
+
+    b = static.block_size
+    nb = pid.shape[0] // b
+    meta = torch.stack([seed, contact_day], dim=-1)
+    args = (eff_pid, loc, take("start"), take("end"), take("p"), sus_v, inf_v,
+            take("row"), take("col"), take("rs"), take("pa"),
+            iops.col_has_infectious(inf_v, eff_pid, nb, b),
+            iops.row_has_susceptible(sus_v, eff_pid, nb, b), meta)
+    tau = tau[:, None]
+    if any(ps.trace for ps in static.pa_slots):
+        # Second accumulator: traced contacts ride the exposure tiles, and
+        # the traced-contact channel rides the exposure combine.
+        acc, cnt, edges, trc = iops.interactions_auto_traced(
+            *args, backend=static.backend, block_size=b,
+            src_val=visit_vals[..., 3] * active)
+        combined = topo.combine_many(
+            route, active, torch.stack([acc, trc.to(torch.float32)], dim=-1))
+        return combined[..., 0] * tau, cnt, edges, combined[..., 1]
+    acc, cnt, edges = iops.interactions_auto_edges(
+        *args, backend=static.backend, block_size=b)
+    return topo.combine(route, active, acc) * tau, cnt, edges, None
+
+
 def exposure(topo, static: EngineStatic, week: dict,
              params: sim_lib.SimParams, state: sim_lib.SimState) -> Exposure:
     """Phases 1-4 of a day: interventions, the testing budget, dispatch,
@@ -103,15 +163,11 @@ def exposure(topo, static: EngineStatic, week: dict,
     day = state.day  # (B,), one value: the batch advances in lockstep
     dow = (day[:1] % pop_lib.DAYS_PER_WEEK)
     take = lambda k: week[k].index_select(0, dow)[0]
-    pid, loc = take("pid"), take("loc")
-    route = topo.day_route(take)
     seed_w, day_w = params.seed[:, None], day[:, None]  # hash words (B, 1)
 
     # ---- interventions + per-person epidemiological channels -----------
-    visit_ok, loc_open, sus_mult, inf_mult, vaccinated = iv_lib.apply_iv_params(
-        static.iv_slots, params.iv, state.iv_active, state.vaccinated,
-        Pw, static.num_locations,
-    )
+    visit_ok, loc_open, person_sus, person_inf, vaccinated = visits(
+        static, params, state, Pw)
 
     # ---- per-agent interventions: isolation and the testing budget -------
     iv = params.iv
@@ -146,45 +202,15 @@ def exposure(topo, static: EngineStatic, week: dict,
         ex = dict(takes=tuple(takes), in_iso=in_iso, detectable=detectable,
                   tests_used=tests_used)
 
-    person_sus = _look(params.sus_table, state.health) * params.beta_sus * sus_mult
-    person_inf = _look(params.inf_table, state.health) * params.beta_inf * inf_mult
-
-    # ---- visit dispatch: person channels to visit slots -------------------
+    # ---- dispatch, the interaction pass (one launch), the combine --------
     person_chans = [person_sus, person_inf, visit_ok.to(torch.float32)]
     if tracing_on:
         person_chans.append(positives.to(torch.float32))
-    visit_vals = topo.dispatch(pid, torch.stack(person_chans, dim=-1), route)  # (B, V, ch)
-    sus_v, inf_v, ok_v = visit_vals[..., 0], visit_vals[..., 1], visit_vals[..., 2]
-    open_v = loc_open[:, loc.clamp(max=static.num_locations - 1)]
-    active = (pid >= 0) & (ok_v > 0.0) & open_v
-    eff_pid = torch.where(active, pid, -1)
-    sus_v = sus_v * active
-    inf_v = inf_v * active
-
-    # ---- the interaction pass: one launch for the batch -------------------
-    b = static.block_size
-    nb = pid.shape[0] // b
     contact_day = torch.where(params.static_network, day % pop_lib.DAYS_PER_WEEK, day)
-    meta = torch.stack([params.seed, contact_day], dim=-1)
-    args = (eff_pid, loc, take("start"), take("end"), take("p"), sus_v, inf_v,
-            take("row"), take("col"), take("rs"), take("pa"),
-            iops.col_has_infectious(inf_v, eff_pid, nb, b),
-            iops.row_has_susceptible(sus_v, eff_pid, nb, b), meta)
-    tau = params.tau_eff[:, None]
+    A, cnt, edges, trc_p = interact(topo, static, take, torch.stack(person_chans, dim=-1),
+                                    loc_open, params.seed, contact_day, params.tau_eff)
     if tracing_on:
-        # Second accumulator: traced contacts ride the exposure tiles, and
-        # the traced-contact channel rides the exposure combine.
-        acc, cnt, edges, trc = iops.interactions_auto_traced(
-            *args, backend=static.backend, block_size=b,
-            src_val=visit_vals[..., 3] * active)
-        combined = topo.combine_many(
-            route, active, torch.stack([acc, trc.to(torch.float32)], dim=-1))
-        A = combined[..., 0] * tau
-        ex["trc_p"] = combined[..., 1]
-    else:
-        acc, cnt, edges = iops.interactions_auto_edges(
-            *args, backend=static.backend, block_size=b)
-        A = topo.combine(route, active, acc) * tau
+        ex["trc_p"] = trc_p
     return Exposure(A=A, cnt=cnt, edges=edges, vaccinated=vaccinated, **ex)
 
 

@@ -241,6 +241,11 @@ class ProductTopology(MeshTopology):
         return self._scen_gather(rows)
 
 
+#: The reference's name for the single-device placement (there, the base
+#: class whose identity collectives every mesh topology overrides).
+Topology = LocalTopology
+
+
 def make_topology(mesh=None, **kw):
     """The placement of a :class:`~repro_torch.launch.mesh.WorkerMesh` (None:
     local) by its named axes; ``kw`` go to the mesh topologies."""

@@ -20,6 +20,13 @@ returns the RunResult JSON; ``GET /metrics`` returns server metrics.
 No extra dependencies; single-process, for demos and local what-if UIs,
 not production TLS/auth.
 
+Both modes serve on one device. Serving on a mesh (``ServeConfig.layout``
+``workers``, ``scenarios`` or ``hybrid``) is SPMD, so it is driven from a
+function every rank runs, started by ``repro_torch.launch.mesh.spawn`` or
+``torchrun``: each rank constructs the server, rank 0 serves and closes,
+the others call ``SimulationServer.follow()`` (``serve/server.py``); this
+CLI has no layout flag, as the reference's has none.
+
 Not to be confused with :mod:`repro_torch.launch.serve`, the LM
 token-serving CLI.
 """

@@ -20,10 +20,9 @@ request-varying axes quantized UP onto a small lattice:
   no_op_params`.
 - **seeding cap** (``seed_per_day``) → the smallest lattice cap >= the
   request's. Quantizing the static top-k width up is bitwise-safe: the
-  local topology's threshold ignores the hint entirely (full sort), the
-  only topology the port runs; the reference's mesh topologies are exact
-  whenever the hint covers the actual budget — which "quantize up"
-  guarantees.
+  local topology's threshold ignores the hint entirely (full sort), and
+  the worker-mesh topologies are exact whenever the hint covers the actual
+  budget — which "quantize up" guarantees.
 - **days** is *not* part of the executable identity at all: the server
   runs every request through fixed ``chunk_days`` chunks of the same
   warm runner and trims each request's history to its own length
@@ -44,12 +43,11 @@ from typing import Tuple
 
 from repro_torch.api.spec import ExperimentSpec
 
-#: The layout every bucket is placed on: one device, each bucket a captured
-#: CUDA graph. A mesh layout's day issues collectives a graph cannot hold
-#: (``EngineCore.runner_fn`` is eager there); serving on a mesh is ROADMAP
-#: queue 1 item 8.
-LAYOUTS = ("local",)
-_MESH_LAYOUTS = ("workers", "scenarios", "hybrid")
+#: The layouts a bucket may be placed on (``EngineCore``'s): one device,
+#: each bucket a captured CUDA graph, or a process mesh, where the runner
+#: is the eager loop (a graph cannot hold the day's collectives) and every
+#: rank runs each dispatch (``serve/server.py``).
+LAYOUTS = ("local", "workers", "scenarios", "hybrid")
 
 
 def quantize_up(value: int, lattice: Tuple[int, ...]) -> int:
@@ -73,9 +71,11 @@ class ServeConfig:
     dispatches. ``chunk_days`` is the streaming granularity AND the one
     day-count every runner is captured for. ``max_executables`` bounds
     the warm bucket table (LRU beyond it); ``strict`` makes any post-warmup
-    rebuild (a capture on the card) a request-failing error rather than
-    just a counted one. ``layout`` must be ``"local"`` and ``workers`` and
-    ``scen_shards`` 1: the server runs on one device."""
+    rebuild (a capture on the card; on a mesh also a plan, per-rank tables
+    or a process group) a request-failing error rather than just a counted
+    one. ``layout`` places every bucket (:meth:`resolved_layout`);
+    ``workers`` and ``scen_shards`` size a mesh layout's axes (1: the
+    world size, for the layout's one axis)."""
 
     layout: str = "local"  # engine-core layout for every bucket
     workers: int = 1
@@ -97,15 +97,21 @@ class ServeConfig:
             raise ValueError("seed_lattice needs at least one cap >= 1")
         if self.max_executables < 1:
             raise ValueError("max_executables must be >= 1")
-        if self.layout in _MESH_LAYOUTS or self.workers != 1 or self.scen_shards != 1:
-            raise NotImplementedError(
-                f"layout '{self.layout}' (workers={self.workers}, scen_shards="
-                f"{self.scen_shards}) is not served: the server runs on one device "
-                "('local'), each bucket a captured CUDA graph, which cannot hold a "
-                "mesh's collectives; serving on a mesh is ROADMAP queue 1 item 8")
         if self.layout not in LAYOUTS:
             raise ValueError(f"unknown layout '{self.layout}'")
+        if self.workers < 1 or self.scen_shards < 1:
+            raise ValueError("workers and scen_shards must be >= 1")
         return self
+
+    def resolved_layout(self) -> str:
+        """The layout buckets are placed on: ``layout``, or for ``"local"``
+        with ``workers`` or ``scen_shards`` above 1 the mesh layout those
+        counts name."""
+        if self.layout != "local":
+            return self.layout
+        if self.workers > 1:
+            return "hybrid" if self.scen_shards > 1 else "workers"
+        return "scenarios" if self.scen_shards > 1 else "local"
 
 
 @dataclasses.dataclass(frozen=True)

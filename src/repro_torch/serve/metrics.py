@@ -4,7 +4,8 @@ reference's ``repro.serve.metrics``, with the same ``to_dict`` keys).
 Everything the acceptance targets are stated in lives here: time-to-
 first-day percentiles (the interactive-latency number), specs/sec,
 batch occupancy (real vs padded scenario slots), cold compiles (bucket
-builds: on the card, a CUDA-graph capture) vs warm dispatches, bucket
+builds: on the card, a CUDA-graph capture) vs warm dispatches, a mesh
+bucket's host builds (its plan, per-rank tables, process groups), bucket
 evictions, and — the hard invariant — recompile violations: a runner
 build observed by :class:`repro_torch.analysis.capture.recompile_sentinel`
 *after* a bucket's warmup, which steady-state serving must never produce.
@@ -78,6 +79,9 @@ class ServeMetrics:
         self.cold_compiles = 0  # bucket warmups (runner builds: captures)
         self.warm_dispatches = 0  # batches served from a warm executable
         self.recompile_violations = 0  # sentinel trips: MUST stay 0
+        # host builds of mesh buckets (plan, tables, groups): a cold bucket's
+        # (and the server's group, once); a warm dispatch makes none
+        self.mesh_builds: dict = {}
         self.ttfd = LatencyStat("time_to_first_day")
         self.latency = LatencyStat("request_latency")
         self.queue_wait = LatencyStat("queue_wait")
@@ -116,6 +120,10 @@ class ServeMetrics:
         with self._lock:
             self.failed += n
 
+    def on_mesh_build(self, kind: str):
+        with self._lock:
+            self.mesh_builds[kind] = self.mesh_builds.get(kind, 0) + 1
+
     def on_recompile_violation(self):
         with self._lock:
             self.recompile_violations += 1
@@ -145,6 +153,7 @@ class ServeMetrics:
                     "cold_compiles": self.cold_compiles,
                     "warm_dispatches": self.warm_dispatches,
                     "recompile_violations": self.recompile_violations,
+                    "mesh_builds": dict(self.mesh_builds),
                 },
                 "time_to_first_day": self.ttfd.to_dict(),
                 "request_latency": self.latency.to_dict(),

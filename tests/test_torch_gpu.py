@@ -9,7 +9,10 @@ plain version, its wrapper's checks, and a prefill launching it once per
 layer; a one-rank nccl mesh and a two-rank gloo mesh sharing the card,
 bitwise the local card run; elastic shrinks of a two- and a four-rank mesh,
 bitwise the uninterrupted run; the static-network mode against its
-EpiHiper-style oracle.
+EpiHiper-style oracle; the reference's lower-level entry points
+(``run_eager``, ``run_scan``, ``day_step``) bitwise the engine on the card;
+a server on a two-rank gloo mesh sharing the card, bitwise the local card
+run.
 
 Every test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a machine with PyTorch alone:
@@ -700,7 +703,7 @@ def test_served_on_the_card_bitwise_equals_solo_run(cuda):
         _same_study(api.run(spec, population=pop), served)
     m = server.metrics_dict()
     assert m["executables"] == {"cold_compiles": 1, "warm_dispatches": 2,
-                                "recompile_violations": 0}
+                                "recompile_violations": 0, "mesh_builds": {}}
     (key,) = list(server._buckets)
     (build,) = server._buckets.peek(key).runner().builds()
     assert isinstance(build, CapturedDays)
@@ -825,3 +828,80 @@ def test_static_mode_on_the_card_matches_the_oracle(cuda, backend):
     _, hist = core.run1(30)
     for k in ("cumulative", "infectious"):
         assert np.array_equal(hist[k], oracle[k]), k
+
+
+@pytest.mark.parametrize("backend", ["pallas-compact", "pallas"])
+def test_lowlevel_views_on_the_card_equal_the_engine(cuda, backend):
+    """``run_eager`` (each phase synchronised) and ``run_scan`` + ``day_step``
+    on the card: bitwise ``run1``, one launch a day of the backend's
+    kernel."""
+    from repro_torch.core import simulator as sim_lib
+
+    pop = get_epidemic("twin-2k").build()
+    core = EngineCore.single(pop, disease.covid_model(), transmission.TransmissionModel(
+        tau=2e-5), seed=0, device=cuda, backend=backend)
+    final, hist = core.run1(10)
+    kernel = {"pallas-compact": t_kernel.interactions_compact_cuda,
+              "pallas": t_kernel.interactions_padded_cuda}[backend]
+    torch.cuda.synchronize()
+    for w in t_kernel.WRAPPERS:
+        w.launches = 0
+    st, he, times = sim_lib.run_eager(core, 10)
+    static, week, cp, params = sim_lib.legacy_parts(core)
+    mid, hs = sim_lib.run_scan(static, week, cp, params, core.init_state1(), 9)
+    last, stats = sim_lib.day_step(static, week, cp, params, mid)
+    assert {w: w.launches for w in t_kernel.WRAPPERS} == {
+        w: 20 if w is kernel else 0 for w in t_kernel.WRAPPERS}
+    for k in sim_lib.STAT_KEYS:
+        assert np.array_equal(he[k], hist[k]), k
+        assert np.array_equal(hs[k].cpu().numpy(), hist[k][:-1]), k
+        assert int(stats[k]) == int(hist[k][-1]), k
+    for f in ("health", "dwell", "cumulative", "vaccinated"):
+        assert torch.equal(getattr(st, f), getattr(final, f)), f
+        assert torch.equal(getattr(last, f), getattr(final, f)), f
+    assert set(times) == {"visits", "interact", "update"}
+    assert all((v > 0).all() for v in times.values())
+
+
+def _serve_rank(specs):
+    """One rank of a two-worker server sharing the card: rank 0 serves
+    ``specs`` after warming their bucket, rank 1 follows; rank 0's
+    histories, the dispatch log, the mesh builds and the launches."""
+    from repro_torch.serve import ServeConfig, SimulationServer
+
+    server = SimulationServer(ServeConfig(layout="workers", workers=2, chunk_days=4,
+                                          b_lattice=(4,)))
+    for w in t_kernel.WRAPPERS:
+        w.launches = 0
+    hists = None
+    if server.rank == 0:
+        server.warm_up(specs[0])
+        tickets = [server.submit(s) for s in specs]
+        server.drain()
+        hists = [t.result(timeout=300).history for t in tickets]
+        server.close()
+    else:
+        server.follow()
+    return (hists, server.dispatch_log, dict(server.mesh_builds),
+            sum(w.launches for w in t_kernel.WRAPPERS))
+
+
+def test_served_on_a_card_mesh_equals_the_local_run(cuda, tmp_path):
+    """Two ranks sharing the card over gloo serve two requests on the
+    ``workers`` layout: bitwise their local card runs, the same dispatch log
+    on both ranks, one launch a served (or warm-up) day on each."""
+    from repro_torch import api
+    from repro_torch.launch import mesh as mesh_lib
+
+    specs = [api.ExperimentSpec(dataset="twin-2k", days=d, tau=2e-5, replicates=r, seed=s)
+             for d, r, s in ((10, 2, 0), (7, 1, 4))]
+    res = mesh_lib.spawn(_serve_rank, 2, backend="gloo", device="cuda:0",
+                         init_dir=str(tmp_path), args=(specs,), timeout_s=60.0, wall_s=300.0)
+    (hists, log0, builds, launches), (_, log1, builds1, launches1) = res
+    assert log0 == log1 and [e[0] for e in log0] == ["warm", "dispatch", "dispatch"]
+    assert builds == builds1 == {"groups": 1, "plan": 1, "tables": 1}
+    assert launches == launches1 == 4 + 12 + 8  # the warm-up chunk, then 3 + 2 chunks
+    for spec, hist in zip(specs, hists):
+        ref = api.run(spec, device=cuda).history
+        for k, v in ref.items():
+            assert np.array_equal(hist[k], v), k

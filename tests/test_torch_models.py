@@ -108,7 +108,7 @@ def test_param_specs_and_counts_match_reference():
 
     for name, cfg in tcfg.ARCHS.items():
         if cfg.family != "dense":
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
                 TM.model_specs(cfg)
             continue
         want = jax.tree_util.tree_leaves_with_path(JM.model_specs(jcfg.ARCHS[name]),

@@ -13,8 +13,9 @@
   observables, summaries), across padding amounts and for mixed requests
   in one dispatch; streamed chunks equal to the final history; zero runner
   builds after ``warm_up``; LRU eviction and rewarm; strict mode on a
-  sentinel trip; background-thread serving; the HTTP front; and
-  ``serve_sim --check --device cpu``.
+  sentinel trip; background-thread serving; the HTTP front;
+  ``serve_sim --check --device cpu``; and every mesh layout validated, a
+  mesh server refused outside a process group of its size.
 * ``EngineCore.runner_fn`` on the CPU equal to ``run_days`` bitwise over
   three chunks, and the runner cache and sentinel.
 
@@ -234,8 +235,14 @@ def test_bucketize_refuses_unservable_specs(pop):
 @pytest.mark.parametrize("cfg", [dict(layout="workers"), dict(layout="hybrid"),
                                  dict(workers=2), dict(scen_shards=2)])
 def test_serve_config_refuses_meshes(cfg):
-    with pytest.raises(NotImplementedError, match="serving on a mesh is ROADMAP queue 1 item 8"):
-        t_serve.ServeConfig(**cfg).validate()
+    """Every mesh layout validates; a server of one needs a process group of
+    the mesh's size and never serves locally instead (served meshes:
+    tests/test_torch_serve_mesh.py)."""
+    config = t_serve.ServeConfig(**cfg)
+    assert config.validate() is config
+    assert config.resolved_layout() != "local"
+    with pytest.raises(RuntimeError, match="no initialised process group.*spawn or torchrun"):
+        t_serve.SimulationServer(config, device="cpu")
     with pytest.raises(ValueError, match="unknown layout"):
         t_serve.ServeConfig(layout="no-such").validate()
 

@@ -3,19 +3,22 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --interactions-only SRC_DIR
+    python3 chip_smoke.py --flash-only SRC_DIR
 
 The second form runs phases 1 and 3 alone on the interaction kernels of the
 checkout whose src/ directory is given (an earlier commit's, unpacked with
-git archive, to time its kernels beside this one's in one call).
+git archive, to time its kernels beside this one's in one call); the third
+runs phase 6 alone on that checkout's flash-attention kernels, with this
+script's cases, inputs, timers and bounds.
 
 Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
   1. device — the card's name and power limit; no CUDA device is an error;
   2. build  — nvcc builds the interaction kernels (one source, four
      instantiations) and the flash-attention kernels (one source: the bf16
-     wgmma/TMA design at Dh 64/128/256 and the float32 FP32-lane design at
-     the same three), both at once, from the checkout's sources and prints
-     ptxas's registers / shared memory / spills for each;
+     wgmma/TMA design at Dh 64/128/256 and the float32 split-TF32 mma.sync
+     design at the same three), both at once, from the checkout's sources
+     and prints ptxas's registers / shared memory / spills for each;
   3. kernels against their plain versions at md-mini day shapes (b=128) in
      four states (early, mid-epidemic, everyone infectious and susceptible,
      and "shuffled": the mid inputs with the visits permuted inside each
@@ -50,7 +53,7 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      equal to its B = 1 card run, the backends bitwise equal; profiled weeks
      at B = 8 and 64; the TTI ensemble (tti x 4 replicates) on both
      backends, bitwise; repro_torch.api.run at B = 1, 8 and 64 (ms per
-     scenario-day), twice each; launch/sweep.py once;
+     scenario-day), once each; launch/sweep.py once;
   4e. chunked runs and recovery — api.run at B = 8 checkpointed every 50
      days into a fresh directory under build/: every history column and
      observable bitwise equal to phase 4d's unchunked B = 8 study, 200
@@ -58,9 +61,9 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      resume that launches nothing; under the recovery policy, chaos events
      raise@100, nan@150 and corrupt@150, each bitwise, with 200 launches plus
      the replayed days and the recovery report printed; a TTI B = 1 study on
-     "pallas" (the traced padded kernel) resumed bitwise; the checkpointed
-     and unchunked studies at B = 8 and 64, twice each in alternating order
-     (ms per scenario-day), the host copy and the wait on the writer per
+     "pallas" (the traced padded kernel) resumed bitwise; the unchunked,
+     then the checkpointed study at B = 8 and 64 (ms per scenario-day),
+     the host copy and the wait on the writer per
      boundary, the restore, and the bytes per snapshot; at B = 64, the
      extra time broken down (boundaries alone, + host copy, + the writer
      thread, + the writer in the loop's thread);
@@ -136,11 +139,13 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
   6. flash attention — the kernels (built in phase 2 beside the interaction
      kernels) against their plain version at qwen2-1.5b's prefill shape (B=8,
      S=512, 12 query heads over 2 KV heads, Dh=128, bf16, causal) and in
-     extra cases (Dh 64 and 256, float32, end-aligned Sq < Sk, a window of
-     128, ragged tiles, a long 2048-token causal prefill), each within its
-     stated tolerance; times of the kernel, the plain version and
-     F.scaled_dot_product_attention (the library yardstick, never used by
-     the port), and the bound;
+     extra cases (Dh 64 and 256, float32 at Dh 64/128/256 and 2048 keys,
+     end-aligned Sq < Sk, a window of 128, ragged tiles, a long 2048-token
+     causal prefill), each within its stated tolerance; times of the kernel,
+     the plain version and F.scaled_dot_product_attention (the library
+     yardstick, never used by the port; in float32 the profiler names the
+     kernels it runs), and the bound (float32: under the split-TF32 model
+     and, beside it, the FP32 lanes');
   7. the serving path — repro_torch.launch.serve.serve with qwen2-1.5b at
      full width and depth (28 layers, d_model 1536), bf16, attn_impl
      "flash", seeded random parameters, batch 8, prompt 512, 32 greedy
@@ -226,9 +231,13 @@ KERNELS = {
 }
 TTI_TESTS_PER_DAY = 100  # the "tti" preset's budget
 # Flash attention. Dense tensor-core peaks (NVIDIA H100 datasheet): 989e12
-# bf16 FLOP/s; float32 inputs get the 67e12 FLOP/s of the FP32 lanes, since
-# the function's float32 dots have no tensor-core path of full precision.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# bf16 FLOP/s and 495e12 TF32. One TF32 product cannot hold the float32
+# tolerance, so the float32 kernel takes each product as three TF32 ones
+# (split TF32, csrc/flash_attention.cu): its float32-accurate rate is a third
+# of the TF32 peak. FLASH_OLD_PEAK, printed beside it, is the FP32 lanes'
+# 67e12 FLOP/s, the bound of a float32 kernel off the tensor cores.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+FLASH_OLD_PEAK = {torch.float32: 67e12}
 # Kernel against plain: the same float32 arithmetic in another order, so
 # float32 outputs agree to |d| <= 1e-5 + 1e-5|x|; a bf16 output may round
 # to the neighbouring bf16 (2^-8 relative at most): |d| <= 2e-2 + 1e-2|x|.
@@ -241,9 +250,9 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
 FLASH_ROW_REL = {torch.bfloat16: 2**-6}
 # (label, B, H, M, Sq, Sk, Dh, dtype, causal, window); the first is the
 # serving prefill's shape and the kernel's JSON record. bf16 runs the wgmma
-# kernel, float32 the FP32-lane one. "long" (~103 GFLOP of live pairs) is
-# bound by operations: it shows how near the tensor cores' rate the design
-# comes.
+# kernel, float32 the split-TF32 one. "long" and "f32_long" (~103 GFLOP of
+# live pairs) are bound by operations: they show how near the tensor cores'
+# rate each design comes.
 FLASH_CASES = (
     ("prefill", 8, 12, 2, 512, 512, 128, torch.bfloat16, True, None),
     ("dh64", 8, 12, 2, 512, 512, 64, torch.bfloat16, True, None),
@@ -253,8 +262,12 @@ FLASH_CASES = (
     ("window128", 8, 12, 2, 512, 512, 128, torch.bfloat16, True, 128),
     ("ragged", 2, 12, 2, 200, 300, 64, torch.float32, False, None),
     ("long", 8, 12, 2, 2048, 2048, 128, torch.bfloat16, True, None),
+    ("f32_dh64", 8, 12, 2, 512, 512, 64, torch.float32, True, None),
+    ("f32_dh256", 8, 12, 2, 512, 512, 256, torch.float32, True, None),
+    ("f32_long", 8, 12, 2, 2048, 2048, 128, torch.float32, True, None),
 )
-FLASH_PLAIN_REPS = {"long": 3}  # the plain version's timed calls (default 20)
+# the plain version's timed calls (default 20)
+FLASH_PLAIN_REPS = {"long": 3, "f32_long": 3}
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:28"
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen2-1.5b", 8, 512, 32
 # Prefill logits (bf16 compute) against the replay's at prompt_len - 1 and
@@ -512,15 +525,16 @@ def expect_launches(launches: dict, kernel: str, days: int, what: str) -> None:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
-def flash_bound(q, k, v, o, live_pairs: int):
+def flash_bound(q, k, v, o, live_pairs: int, peaks=PEAK_FLOPS):
     """Least time for the attention function: Q, K, V read once and O written
     once at peak bandwidth (K/V at their kv-head count: the kernel reads them
     in place), against 4 Dh flops (two multiply-adds) per unmasked
-    (query, key) pair and query head at the input type's peak rate."""
+    (query, key) pair and query head at the input type's peak rate in
+    ``peaks``."""
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
     flops = 4 * q.shape[-1] * live_pairs * q.shape[0]
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    t_ops = flops / peaks[q.dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", flops
 
 
@@ -536,9 +550,29 @@ def attention_mask(Sq, Sk, causal, window, device):
     return mask
 
 
+def device_kernel_names(fn) -> list:
+    """The device kernels of ``fn``, by torch.profiler over 20 calls: the
+    device events, else the averages with device time, else "not measured"
+    (what the whole script has printed here, after its earlier phases; the
+    --flash-only mode names them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    if not names:
+        names = {a.key for a in prof.key_averages()
+                 if getattr(a, "self_device_time_total", 0) > 0}
+    return sorted(names) or ["not measured"]
+
+
 def flash_phase(fk, card: str) -> dict:
     """The flash kernel against its plain version in each of FLASH_CASES;
-    times by CUDA events; returns the first case's JSON fields."""
+    times by CUDA events; returns each case's JSON fields by label."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products in
@@ -546,7 +580,7 @@ def flash_phase(fk, card: str) -> dict:
     # detlint: ignore[DET001] — the flash cases' inputs: a seeded generator
     # on the card, not simulation state
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = None
+    out = {}
     for label, B, H, M, Sq, Sk, Dh, dt, causal, window in FLASH_CASES:
         G = H // M
         # detlint: ignore[DET001] — the same seeded inputs
@@ -588,6 +622,13 @@ def flash_phase(fk, card: str) -> dict:
         lib_device_ms = device_host_ms(run_lib, 20)[0]
         live = int(mask.sum())
         bound_ms, bound_by, flops = flash_bound(q, k, v, o_k, live)
+        old = ""
+        if dt in FLASH_OLD_PEAK:
+            old_ms, old_by, _ = flash_bound(q, k, v, o_k, live, FLASH_OLD_PEAK)
+            old = (f" (FP32-lane model {old_ms:.5f}, {old_by}; device alone "
+                   f"{100.0 * old_ms / device_ms:.2f}% of it)")
+            log(f"[flash:{label}] SDPA's device kernels in float32: "
+                f"{device_kernel_names(run_lib)}")
         log(f"[flash:{label}] B={B} H={H} M={M} Sq={Sq} Sk={Sk} Dh={Dh} "
             f"{str(dt).split('.')[-1]} causal={causal} window={window}: kernel within "
             f"tolerance of plain (max_abs_err={err}, tolerance {atol} + {rtol}|x|, "
@@ -598,14 +639,62 @@ def flash_phase(fk, card: str) -> dict:
             f"{host_ms:.4f} per call) "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} (device alone {lib_device_ms:.4f}) "
             f"(sdpa max |d| vs plain {lib_err:.3g}) bound_ms={bound_ms:.5f} ({bound_by}; "
-            f"{flops / 1e9:.3f} GFLOP, live fraction {live / (Sq * Sk):.4f}) "
+            f"{flops / 1e9:.3f} GFLOP, live fraction {live / (Sq * Sk):.4f}){old} "
             f"{100.0 * bound_ms / ms:.2f}% of bound; {flops / ms / 1e9:.2f} TFLOP/s (device "
             f"alone {100.0 * bound_ms / device_ms:.2f}%, {flops / device_ms / 1e9:.2f}); {card}")
-        if out is None:
-            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=lib_ms, device_ms=device_ms,
-                       library_device_ms=lib_device_ms)
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms, device_ms=device_ms,
+                          library_device_ms=lib_device_ms)
     return out
+
+
+# The flash kernels' mangled names (flash_fwd_kernel: the FP32-lane float32
+# kernel of older checkouts, which --flash-only may build).
+FLASH_KERNEL_NAME = re.compile(
+    r"(flash_fwd_wgmma_kernel|flash_fwd_f32_kernel|flash_fwd_kernel)I\w*?Li(\d+)E")
+
+
+def log_flash_build(report: str, fk=None) -> None:
+    """ptxas's registers, shared memory and spills for each flash kernel in
+    a build's ``-Xptxas -v`` report (and, given this checkout's module
+    ``fk``, each one's dynamic shared memory and threads per CTA)."""
+    inst = None
+    for line in report.splitlines():
+        m = FLASH_KERNEL_NAME.search(line)
+        if m and "entry function" in line:
+            bf16 = m.group(1) == "flash_fwd_wgmma_kernel"
+            dt, Dh = (torch.bfloat16 if bf16 else torch.float32), int(m.group(2))
+            inst = f"{m.group(1)}<{'bf16' if bf16 else 'f32'}, Dh={Dh}>"
+            if fk is not None:  # threads: bf16 three warpgroups, float32 a warp per 16 rows
+                threads = 384 if bf16 else 32 * fk.TILES[dt][0] // 16
+                log(f"[build] {inst}: dynamic shared memory {fk.shared_bytes(Dh, dt)} "
+                    f"bytes per CTA of {threads} threads")
+        elif inst and ("registers" in line or "spill" in line or "smem" in line):
+            log(f"[build] {inst}: {line.strip()}")
+        elif "Performance Loss" in line:  # ptxas names the kernel it warns about
+            log(f"[build] {line.strip()[:240]}")
+
+
+def flash_only(src: str) -> int:
+    """Phase 6 alone, on the flash-attention kernels of the checkout whose
+    ``src`` directory is given (its own build, wrapper and plain version;
+    this script's cases, inputs, timers and bounds): the way to time an
+    earlier commit's kernels beside this one's in one call."""
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    card = card_line()
+    log(f"[device] {card}")
+    log(f"[flash-only] kernels from {os.path.abspath(src)}")
+    t0 = time.perf_counter()
+    _, report = fk.build()
+    log(f"[build] {os.path.relpath(fk.SOURCE, os.path.abspath(src))} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    log_flash_build(report)
+    records = flash_phase(fk, card)
+    log(card)
+    log(json.dumps({"flash": records}))
+    return 0
 
 
 def device_summary(prof, wall_ms: float, steps: int, label: str, card: str) -> None:
@@ -838,7 +927,7 @@ def interaction_phase(core, covid, kernel, ops, wrappers, card: str) -> dict:
 
 # Scenario batches (this slice's main path): the ensemble's presets, and the
 # study shapes timed through api.run: (B, interventions, tau scales,
-# replicates), each run twice in the order 1, 8, 64, 64, 8, 1.
+# replicates), each run once, in that order.
 ENSEMBLE_PRESETS = ("none", "lockdown", "school-closure", "vax-seniors")
 STUDIES = ((1, ("none",), (1.0,), 1), (8, ENSEMBLE_PRESETS, (1.0,), 2),
            (64, ENSEMBLE_PRESETS, (1.0, 0.75), 8))
@@ -1063,7 +1152,7 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
 
     stamp("api.run studies")
     studies = {}
-    for width, _, _, _ in STUDIES + STUDIES[::-1]:
+    for width, _, _, _ in STUDIES:
         spec = study_spec(width)
         torch.cuda.synchronize()
         for w in wrappers.values():
@@ -1237,7 +1326,7 @@ def chunked_phase(pop, wrappers, studies, card) -> None:
     try:
         for width in (8, 64):
             walls = {"unchunked": [], "checkpointed": []}
-            for mode in ("unchunked", "checkpointed", "checkpointed", "unchunked"):
+            for mode in ("unchunked", "checkpointed"):
                 for v in times.values():
                     v.clear()
                 d = fresh()
@@ -1266,7 +1355,7 @@ def chunked_phase(pop, wrappers, studies, card) -> None:
                 f"{[round(1e3 * w / (DAYS * width), 4) for w in walls['unchunked']]} vs "
                 f"checkpointed every {CKPT_EVERY} "
                 f"{[round(1e3 * w / (DAYS * width), 4) for w in walls['checkpointed']]} "
-                f"(order: unchunked, checkpointed, checkpointed, unchunked; run_wall_s "
+                f"(order: unchunked, checkpointed; run_wall_s "
                 f"{walls}); {card}")
     finally:
         runner.CheckpointManager = CheckpointManager
@@ -1276,8 +1365,8 @@ def chunked_phase(pop, wrappers, studies, card) -> None:
 
 def checkpoint_breakdown(pop, width: int, fresh, card) -> None:
     """Where a checkpointed study's extra time goes: the study at ``width``
-    through ``run_chunked`` on one core, five ways, in turns (the order,
-    then the reverse): one chunk; four chunks with a save that does
+    through ``run_chunked`` on one core, five ways, once each: one chunk;
+    four chunks with a save that does
     nothing (the boundaries alone); with a save that only copies the state
     to the host; with the manager's background writer; with the writer run
     in the loop's thread (``blocking``, so its whole cost is serial)."""
@@ -1317,7 +1406,7 @@ def checkpoint_breakdown(pop, width: int, fresh, card) -> None:
              "4 chunks, writer thread": lambda: CheckpointManager(fresh()),
              "4 chunks, blocking writer": lambda: Blocking(fresh())}
     walls = {m: [] for m in modes}
-    for m in list(modes) + list(modes)[::-1]:
+    for m in modes:
         mgr = modes[m]()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1325,8 +1414,8 @@ def checkpoint_breakdown(pop, width: int, fresh, card) -> None:
                                ctx, manager=mgr, every=CKPT_EVERY, resume=False)
         torch.cuda.synchronize()
         walls[m].append(round(time.perf_counter() - t0, 4))
-    log(f"[chunked] B={width} breakdown, run_chunked wall s (two turns each, "
-        f"order then reverse): {json.dumps(walls)}; blocking save (copy + digests + "
+    log(f"[chunked] B={width} breakdown, run_chunked wall s (one run each): "
+        f"{json.dumps(walls)}; blocking save (copy + digests + "
         f"np.save) per boundary ms {[round(1e3 * t, 3) for t in saves]}; {card}")
 
 
@@ -2397,8 +2486,11 @@ def main() -> int:
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--interactions-only":
         return interactions_only(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--flash-only":
+        return flash_only(sys.argv[2])
     if len(sys.argv) != 1:
-        print("usage: chip_smoke.py [--interactions-only SRC_DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--interactions-only SRC_DIR | --flash-only SRC_DIR]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
@@ -2435,20 +2527,7 @@ def main() -> int:
             inst = f"traced={m.group(1)} padded={m.group(2)}"
         elif inst and ("registers" in line or "spill" in line):
             log(f"[build] interactions_kernel<{inst}>: {line.strip()}")
-    inst = None
-    for line in built[flash_kernel][1].splitlines():
-        m = re.search(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel)I\w*?Li(\d+)E", line)
-        if m and "entry function" in line:
-            wgmma = m.group(1) == "flash_fwd_wgmma_kernel"
-            dt, threads = (torch.bfloat16, 384) if wgmma else (torch.float32, 256)
-            inst = f"{m.group(1)}<{'bf16' if wgmma else 'f32'}, Dh={m.group(2)}>"
-            log(f"[build] {inst}: dynamic shared memory "
-                f"{flash_kernel.shared_bytes(int(m.group(2)), dt)} bytes per CTA of "
-                f"{threads} threads")
-        elif inst and ("registers" in line or "spill" in line or "smem" in line):
-            log(f"[build] {inst}: {line.strip()}")
-        elif "Performance Loss" in line:  # ptxas names the kernel it warns about
-            log(f"[build] {line.strip()[:240]}")
+    log_flash_build(built[flash_kernel][1], flash_kernel)
 
     # ---- phase 3: kernels against their plain versions ----------------------
     stamp("interaction kernels")
@@ -2601,7 +2680,7 @@ def main() -> int:
 
     # ---- phase 6: flash attention against its plain version -----------------
     stamp("flash attention")
-    flash_rec = flash_phase(flash_kernel, card)
+    flash_rec = flash_phase(flash_kernel, card)[FLASH_CASES[0][0]]
 
     # ---- phase 7: the serving path ------------------------------------------
     stamp("serving")

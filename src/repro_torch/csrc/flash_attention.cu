@@ -23,9 +23,11 @@
 //
 // Bound on this card: at the serving prefill shape (qwen2-1.5b, 8 x 512,
 // 12 query heads over 2 KV heads, Dh 128) the work is 4 Dh flops per live
-// (query, key) pair and head, 6.5 GFLOP, against 29 MB of Q/K/V/O: 0.0088 ms
-// at 3.35 TB/s bounds it, with the operations close behind at 0.0065 ms on
-// the tensor cores' 989 TFLOP/s (0.096 ms on the FP32 lanes' 67 TFLOP/s).
+// (query, key) pair and head, 6.5 GFLOP. In bf16, against 29 MB of Q/K/V/O,
+// 0.0088 ms at 3.35 TB/s bounds it, with the operations close behind at
+// 0.0065 ms on the tensor cores' 989 TFLOP/s. In float32 the 58.7 MB take
+// 0.0175 ms and the operations bound it: 0.0391 ms at the split-TF32 rate
+// (495 / 3 TFLOP/s, below), 0.0963 ms at the FP32 lanes' 67 TFLOP/s.
 //
 // Two kernels, one function:
 //
@@ -66,16 +68,55 @@
 //   with tile j - 1's P V, three stages, or 128-key tiles measured no faster
 //   at the serving shape (PERF.md).
 //
-// flash_fwd_kernel<float, Dh>, float32 (the first, simple design, kept as
-// the float32 route). Tensor cores would take float32 through TF32, which
-// cannot hold the float32 tolerance (1e-5 + 1e-5|x|); no path that users run
-// launches attention in float32. One CTA of 256 threads per (bh, tile of
-// kBQ = 64 query rows), the tile with the longest causal rows first. The CTA
-// stages its Q tile (scaled, f32) in shared memory once, then walks the live
-// key tiles of kBK = 32 keys: K and V tiles to shared memory, the 64 x 32
-// logits as a 16 x 16 thread grid of 4 x 2 register blocks, the online
-// softmax one warp per 8 rows (one logit per lane), then acc (4 rows x Dh / 16
-// columns per thread, in registers) += P V, on the FP32 CUDA cores.
+// flash_fwd_f32_kernel<Dh>, float32, on the tensor cores in split TF32. One
+// TF32 product keeps 10 of float32's 23 mantissa bits, which moves the
+// outputs by ~1e-4, ten times the float32 tolerance (1e-5 + 1e-5|x|;
+// tests/test_torch_flash.py emulates it). So each operand x is split into
+// big = rna_tf32(x) and small = rna_tf32(x - big), and a b is taken as
+// small_a big_b + big_a small_b + big_a big_b on the tensor cores (CUTLASS's
+// "3xTF32"), accumulated in f32, the cross terms apart from big x big and
+// the two added on the FP32 lanes; the dropped small_a small_b and the
+// rounding of the small parts are ~2^-22 |a b|, the order of float32's own
+// rounding. The split is two integer operations a part (ptxas makes
+// cvt.rna.tf32.f32 a longer sequence with NaN handling). Three products per
+// product turn the card's 495 TFLOP/s of TF32 into ~165 TFLOP/s of
+// float32-accurate ones, 2.5x the 67 TFLOP/s of the FP32 lanes. mma.sync
+// takes both operands from registers, so Q, K, V and P are split in
+// registers as they are loaded (a wgmma design would need split and, for V,
+// transposed copies in shared memory).
+//   One CTA of four warps owns one (bh, tile of kF32BQ = 64 query rows), the
+//   tiles with the longest causal rows first, on a 1-D grid; each warp owns
+//   16 rows (two m-tiles a warp, so that a K/V fragment split once feeds
+//   both, spilled at Dh 128 and measured slower at Dh 64: PERF.md).
+//   Loads: the Q tile, times the scale, to shared memory once (split in
+//   registers as it is read, as K, V and P are: splitting each K/V tile
+//   once into big and small copies in shared memory measured slower, and
+//   does not fit at Dh 256); K and V tiles of kF32BK = 32 keys through two
+//   stages by cp.async (16 B a thread, rows past Sk zero-filled), the next
+//   live tile in flight while the warps work on this one, one CTA barrier
+//   per tile. Rows are padded (Q and K to
+//   Dh + 16 floats, V to Dh + 4) so that each quarter warp's 16-byte
+//   fragment loads hit 32 distinct banks.
+//   S = Q K^T by mma.sync m16n8k8 TF32: Q is the row-major A fragment, K the
+//   B fragment, both Dh-contiguous. The dot runs over d in another order:
+//   one 16-byte load at d = 16 p + 4 t (t = lane % 4) gives a thread the four
+//   d that the two 8-deep k-steps at 16 p assign it, for Q and K alike.
+//   Scale on Q, masks as in the bf16 design, online softmax in registers (a
+//   row's max and sum over its quad by shuffles), expf.
+//   O += P V with no shuffle: the S accumulator holds keys 2t and 2t + 1 of
+//   rows g and g + 8 (g = lane / 4); they become the A fragment's k-indices
+//   t and t + 4, and V's rows 2t and 2t + 1 are read in that order for B.
+//   Four n-tiles of 8 output columns take d = 32 q + 4 g + j (j the n-tile),
+//   so one 16-byte load of a V row feeds four of them, and a thread's
+//   outputs are 8 contiguous floats of a row: two 16-byte stores. A tile's
+//   P V sums in fresh accumulators and joins acc on the FP32 lanes (acc corr
+//   + P V, the plain version's step): the truncating tensor-core steps
+//   straight into acc would bias it (3 Sk / 8 of them; measured: PERF.md).
+//   A warp works only on the live tiles its own rows see (a skipped tile's
+//   logits would all be -1e30, which changes none of m, l, acc). The keys
+//   are never split across CTAs (no float atomics, no combine), so each
+//   row's sums run in one fixed order: the same inputs give the same bits on
+//   every launch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -87,179 +128,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 32;        // keys per shared-memory tile (one per lane)
-constexpr int kThreads = 256;  // a 16 x 16 thread grid
-constexpr int kWarps = kThreads / 32;
 constexpr float kMasked = -1e30f;  // the reference's masked logit
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-
-template <int Dh>
-constexpr size_t smem_bytes() {
-  // Q and K tiles padded by one column (no bank conflicts on the strided
-  // reads), V unpadded, the logit tile padded, then m, l and corr per row.
-  return sizeof(float) * ((size_t)kBQ * (Dh + 1) + (size_t)kBK * (Dh + 1) +
-                          (size_t)kBK * Dh + (size_t)kBQ * (kBK + 1) + 3 * kBQ);
-}
-
-template <typename T, int Dh>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int G, int Sq, int Sk, int causal, int has_window,
-                 int window, float scale) {
-  constexpr int QS = Dh + 1;     // row stride of the Q and K tiles
-  constexpr int SS = kBK + 1;    // row stride of the logit tile
-  constexpr int RPT = kBQ / 16;  // query rows per thread
-  constexpr int CPT = kBK / 16;  // logit columns per thread
-  constexpr int DPT = Dh / 16;   // output columns per thread
-  constexpr int RPW = kBQ / kWarps;  // softmax rows per warp
-
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBQ * QS;
-  float* sV = sK + kBK * QS;
-  float* sS = sV + kBK * Dh;
-  float* sM = sS + kBQ * SS;
-  float* sL = sM + kBQ;
-  float* sC = sL + kBQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int nq = min(kBQ, Sq - q0);
-  const int off = Sk - Sq;
-  const int q_lo = q0 + off, q_hi = q0 + nq - 1 + off;
-
-  const T* qb = q + ((size_t)bh * Sq + q0) * Dh;
-  const T* kb = k + (size_t)(bh / G) * Sk * Dh;
-  const T* vb = v + (size_t)(bh / G) * Sk * Dh;
-
-  for (int i = tid; i < kBQ * Dh; i += kThreads) {
-    const int r = i / Dh, d = i % Dh;
-    sQ[r * QS + d] = r < nq ? to_f(qb[(size_t)r * Dh + d]) * scale : 0.0f;
-  }
-  for (int r = tid; r < kBQ; r += kThreads) {
-    sM[r] = -INFINITY;
-    sL[r] = 0.0f;
-  }
-
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.0f;
-
-  const int nkt = (Sk + kBK - 1) / kBK;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kBK;
-    const int nk = min(kBK, Sk - k0);
-    const int k_hi = k0 + nk - 1;
-    bool live = true;
-    if (causal) live = k0 <= q_hi;
-    if (has_window) live = live && (k_hi > q_lo - window);
-    if (!live) continue;  // uniform over the CTA
-
-    __syncthreads();  // the previous tile's readers are done with sK, sV, sS
-    for (int i = tid; i < kBK * Dh; i += kThreads) {
-      const int r = i / Dh, d = i % Dh;
-      const bool in = r < nk;
-      sK[r * QS + d] = in ? to_f(kb[(size_t)(k0 + r) * Dh + d]) : 0.0f;
-      sV[r * Dh + d] = in ? to_f(vb[(size_t)(k0 + r) * Dh + d]) : 0.0f;
-    }
-    __syncthreads();
-
-    // logits = (q * scale) . k, then the masks
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < Dh; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = sQ[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = sK[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const int qpos = q_lo + r, kpos = k0 + c;
-        bool keep = true;
-        if (causal) keep = kpos <= qpos;
-        if (has_window) keep = keep && (kpos > qpos - window);
-        float x = keep ? s[i][j] : kMasked;
-        if (c >= nk) x = -INFINITY;  // past the last key: weight exactly 0
-        sS[r * SS + c] = x;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per RPW rows, one logit per lane
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr;
-      const float x = sS[r * SS + lane];
-      float mx = x;
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p = expf(x - m_new);
-      float sum = p;
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      sS[r * SS + lane] = p;
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        sL[r] = sL[r] * corr + sum;
-        sM[r] = m_new;
-        sC[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float corr = sC[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= corr;
-    }
-    for (int c = 0; c < nk; ++c) {
-      float pv[RPT], vv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = sS[(ty + 16 * i) * SS + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = sV[c * Dh + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();  // sL is final
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= nq) continue;
-    const float denom = fmaxf(sL[r], 1e-30f);
-    T* orow = o + ((size_t)bh * Sq + q0 + r) * Dh;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) from_f(orow + tx + 16 * j, acc[i][j] / denom);
-  }
-}
 
 // ---- the bf16 design: wgmma, TMA, warp-specialised ------------------------
 
@@ -462,12 +331,12 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
   if constexpr (N == 256) wgmma_rs_m64n256_tb(d, a, desc_b, 1);
 }
 
-// Whether key tile kt holds a pair the masks keep for query positions
-// [q_lo, q_hi]; the producer and the consumers walk the same tiles.
+// Whether key tile kt (of bk keys) holds a pair the masks keep for query
+// positions [q_lo, q_hi]; the producer and the consumers walk the same tiles.
 __device__ __forceinline__ bool tile_live(int kt, int Sk, int q_lo, int q_hi, int causal,
-                                          int has_window, int window) {
-  const int k0 = kt * kWgBK;
-  const int k_hi = min(k0 + kWgBK, Sk) - 1;
+                                          int has_window, int window, int bk = kWgBK) {
+  const int k0 = kt * bk;
+  const int k_hi = min(k0 + bk, Sk) - 1;
   bool live = true;
   if (causal) live = k0 <= q_hi;
   if (has_window) live = live && (k_hi > q_lo - window);
@@ -691,6 +560,309 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ---- the float32 design: split-TF32 mma.sync, cp.async --------------------
+
+constexpr int kF32BQ = 64;  // query rows per CTA
+constexpr int kF32BK = 32;  // keys per K/V tile
+
+// Per head dim, the shared memory in floats: the scaled Q tile, then two
+// stages of a K tile and a V tile. Row strides: Q and K rows Dh + 16 floats
+// (a quarter warp's 16-byte loads of rows g, g + 1 at 4 t hit 32 distinct
+// banks), V rows Dh + 4 (the same for rows 2t at 4 g).
+template <int Dh>
+struct F32Layout {
+  static constexpr int kThreads = 32 * kF32BQ / 16;  // a warp per 16 query rows
+  static constexpr int kQS = Dh + 16;
+  static constexpr int kVS = Dh + 4;
+  static constexpr int kK = kF32BQ * kQS;  // stage s: its K tile at kK + s kStage
+  static constexpr int kV = kF32BK * kQS;  // and its V tile kV further
+  static constexpr int kStage = kF32BK * (kQS + kVS);
+  static constexpr uint32_t kBytes = sizeof(float) * (kK + 2 * kStage);
+};
+
+// x rounded to TF32 (10 explicit mantissa bits), ties away from zero: half
+// a TF32 unit added to the magnitude bits, then the 13 low bits cleared (the
+// sign takes no carry for finite x; inf stays inf). What cvt.rna.tf32.f32
+// computes for finite x, in two integer operations where ptxas makes that
+// instruction a longer sequence with NaN handling.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + e with big and small TF32 and |e| <= 2^-22 |x|: x - big
+// is exact, and rounding it keeps 11 of its bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b: A 16 x 8 row-major, B 8 x 8 column-major, both TF32; f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d + dx += a b in split TF32: big x big into d, the two cross terms into dx.
+// The tensor cores' f32 accumulation truncates, so the small terms keep an
+// accumulator of their own size instead of meeting big x big's partial sums
+// (half the error of one accumulator, at the same speed: PERF.md).
+__device__ __forceinline__ void mma_split(float (&d)[4], float (&dx)[4], const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                          const uint32_t (&bs)[2]) {
+  mma_tf32(dx, as, bb[0], bb[1]);
+  mma_tf32(dx, ab, bs[0], bs[1]);
+  mma_tf32(d, ab, bb[0], bb[1]);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !in
+// (then nothing is read from src).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+template <int Dh>
+__global__ void __launch_bounds__(F32Layout<Dh>::kThreads)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int BH, int G, int Sq,
+                     int Sk, int causal, int has_window, int window, float scale) {
+  using L = F32Layout<Dh>;
+  constexpr int kQS = L::kQS, kVS = L::kVS;
+  constexpr int kNT = kF32BK / 8;  // 8-key n-tiles of S
+  constexpr int kChunks = Dh / 4;  // 16-byte chunks of a row
+  extern __shared__ float4 f32_smem[];
+  float* sQ = reinterpret_cast<float*>(f32_smem);
+  const uint32_t s_base = smem_u32(sQ);
+  const int tid = threadIdx.x;
+
+  // CTA -> (query tile, head), the tiles with the longest causal rows first.
+  const int nqt = (Sq + kF32BQ - 1) / kF32BQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nqt - 1 - static_cast<int>(blockIdx.x / BH)) * kF32BQ;
+  const int off = Sk - Sq;
+  const int q_lo = q0 + off, q_hi = min(q0 + kF32BQ, Sq) - 1 + off;
+  const int nkt = (Sk + kF32BK - 1) / kF32BK;
+  const float* kb = k + static_cast<size_t>(bh / G) * Sk * Dh;
+  const float* vb = v + static_cast<size_t>(bh / G) * Sk * Dh;
+
+  // K and V tile kt into stage st, rows past Sk as zeros; one commit group.
+  auto load_kv = [&](int kt, int st) {
+    const int k0 = kt * kF32BK;
+    const uint32_t dst = s_base + sizeof(float) * (L::kK + st * L::kStage);
+    for (int i = tid; i < kF32BK * kChunks; i += L::kThreads) {
+      const int r = i / kChunks, c = 4 * (i % kChunks);
+      const bool in = k0 + r < Sk;
+      const size_t src = static_cast<size_t>(in ? k0 + r : 0) * Dh + c;
+      cp_async16(dst + sizeof(float) * (r * kQS + c), kb + src, in);
+      cp_async16(dst + sizeof(float) * (L::kV + r * kVS + c), vb + src, in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // The CTA's live tiles [c0, c1] (contiguous: causal cuts a suffix, the
+  // window a prefix; never empty, each query row keeps its own key), and
+  // this warp's [w0, w1] inside them.
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = 16 * warp;  // the warp's first row in the tile
+  const int wq_lo = q_lo + row0, wq_hi = wq_lo + 15;
+  int c0 = nkt, c1 = -1, w0 = nkt, w1 = -1;
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (!tile_live(kt, Sk, q_lo, q_hi, causal, has_window, window, kF32BK)) continue;
+    c0 = min(c0, kt);
+    c1 = kt;
+    if (tile_live(kt, Sk, wq_lo, wq_hi, causal, has_window, window, kF32BK)) {
+      w0 = min(w0, kt);
+      w1 = kt;
+    }
+  }
+  if (c0 <= c1) load_kv(c0, 0);
+
+  // The Q tile, times the scale, rows past Sq as zeros (read while the
+  // first K/V tile is in flight).
+  for (int i = tid; i < kF32BQ * kChunks; i += L::kThreads) {
+    const int r = i / kChunks, c = 4 * (i % kChunks);
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < Sq) {
+      x = *reinterpret_cast<const float4*>(q + (static_cast<size_t>(bh) * Sq + q0 + r) * Dh + c);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+    }
+    *reinterpret_cast<float4*>(sQ + r * kQS + c) = x;
+  }
+
+  // This thread's rows g and g + 8 of the warp's 16 (index h): the running
+  // max, its share of the row sum, and acc[j][i], row g + 8 (i / 2) and
+  // d = 32 (j / 4) + 8 t + 4 (i % 2) + j % 4.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[Dh / 8][4];
+#pragma unroll
+  for (int j = 0; j < Dh / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  int stage = 0;
+  for (int kt = c0; kt <= c1; ++kt, stage ^= 1) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // Tile kt (and, the first time, Q) is in place for every thread, and
+    // every warp is done with the other stage, which the next tile fills.
+    __syncthreads();
+    if (kt < c1) load_kv(kt + 1, stage ^ 1);
+    if (kt < w0 || kt > w1) continue;  // uniform over the warp
+    const float* sK = sQ + L::kK + stage * L::kStage;
+    const float* sV = sK + L::kV;
+
+    // S = Q K^T, two 8-deep k-steps per 16 of Dh; s[nt][i] is row
+    // g + 8 (i / 2), key 8 nt + 2 t + i % 2.
+    float s[kNT][4], sx[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = sx[nt][i] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < Dh / 16; ++p) {
+      // A fragments of both k-steps: rows g and g + 8, k-indices t and t + 4
+      // of step 0 at d = 16 p + 4 t + {0, 1}, of step 1 at + {2, 3}.
+      const float* qr = sQ + (row0 + g) * kQS + 16 * p + 4 * t;
+      const float4 x = *reinterpret_cast<const float4*>(qr);
+      const float4 y = *reinterpret_cast<const float4*>(qr + 8 * kQS);
+      uint32_t ab[2][4], as[2][4];
+      split_tf32(x.x, ab[0][0], as[0][0]);
+      split_tf32(y.x, ab[0][1], as[0][1]);
+      split_tf32(x.y, ab[0][2], as[0][2]);
+      split_tf32(y.y, ab[0][3], as[0][3]);
+      split_tf32(x.z, ab[1][0], as[1][0]);
+      split_tf32(y.z, ab[1][1], as[1][1]);
+      split_tf32(x.w, ab[1][2], as[1][2]);
+      split_tf32(y.w, ab[1][3], as[1][3]);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        // B fragments: key 8 nt + g at the same four d.
+        const float4 z = *reinterpret_cast<const float4*>(sK + (8 * nt + g) * kQS + 16 * p + 4 * t);
+        uint32_t bb[2][2], bs[2][2];
+        split_tf32(z.x, bb[0][0], bs[0][0]);
+        split_tf32(z.y, bb[0][1], bs[0][1]);
+        split_tf32(z.z, bb[1][0], bs[1][0]);
+        split_tf32(z.w, bb[1][1], bs[1][1]);
+        mma_split(s[nt], sx[nt], ab[0], as[0], bb[0], bs[0]);
+        mma_split(s[nt], sx[nt], ab[1], as[1], bb[1], bs[1]);
+      }
+    }
+
+    // Join the cross terms, then the masks where this tile crosses the
+    // diagonal, the window's edge or Sk.
+    const int k0 = kt * kF32BK;
+    const bool edge = (causal && k0 + kF32BK - 1 > wq_lo) ||
+                      (has_window && k0 <= wq_hi - window) || (k0 + kF32BK > Sk);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[nt][i] + sx[nt][i];
+        if (edge) {
+          const int qpos = wq_lo + g + 8 * (i / 2);
+          const int kpos = k0 + 8 * nt + 2 * t + (i % 2);
+          bool keep = true;
+          if (causal) keep = kpos <= qpos;
+          if (has_window) keep = keep && (kpos > qpos - window);
+          x = keep ? x : kMasked;
+          if (kpos >= Sk) x = -INFINITY;  // past the last key: weight exactly 0
+        }
+        s[nt][i] = x;
+      }
+
+    // Online softmax: a row's other 24 columns sit in lanes xor 1 and xor 2.
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[h] = expf(m[h] - mx);
+      m[h] = mx;
+      l[h] *= corr[h];
+    }
+    // P, split: the A fragment of keys 8 kk.. takes key 2t as k-index t and
+    // key 2t + 1 as t + 4.
+    uint32_t pb[kNT][4], ps[kNT][4];
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      float pr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pr[i] = expf(s[kk][i] - m[i / 2]);
+        l[i / 2] += pr[i];
+      }
+      split_tf32(pr[0], pb[kk][0], ps[kk][0]);
+      split_tf32(pr[2], pb[kk][1], ps[kk][1]);
+      split_tf32(pr[1], pb[kk][2], ps[kk][2]);
+      split_tf32(pr[3], pb[kk][3], ps[kk][3]);
+    }
+
+    // acc = acc corr + P V, 32 output columns at a time: the tile's P V in
+    // fresh accumulators, joined to acc on the FP32 lanes.
+#pragma unroll
+    for (int dq = 0; dq < Dh / 32; ++dq) {
+      float pv[4][4], pvx[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[j][i] = pvx[j][i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        // n-tile j is d = 32 dq + 4 g + j: V rows 2t and 2t + 1 of the 8 keys.
+        const float* vr = sV + (8 * kk + 2 * t) * kVS + 32 * dq + 4 * g;
+        const float4 x0 = *reinterpret_cast<const float4*>(vr);
+        const float4 x1 = *reinterpret_cast<const float4*>(vr + kVS);
+        const float r0[4] = {x0.x, x0.y, x0.z, x0.w}, r1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bb[2], bs[2];
+          split_tf32(r0[j], bb[0], bs[0]);
+          split_tf32(r1[j], bb[1], bs[1]);
+          mma_split(pv[j], pvx[j], pb[kk], ps[kk], bb, bs);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[4 * dq + j][i] = acc[4 * dq + j][i] * corr[i / 2] + (pv[j][i] + pvx[j][i]);
+    }
+  }
+
+  // Epilogue: acc / max(l, 1e-30), rows < Sq only; row g + 8 h's d =
+  // 32 dq + 8 t + 0..7 are two float4 stores.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float denom = fmaxf(sum, 1e-30f);
+    const int r = q0 + row0 + g + 8 * h;
+    if (r >= Sq) continue;
+    float* orow = o + (static_cast<size_t>(bh) * Sq + r) * Dh + 8 * t;
+#pragma unroll
+    for (int dq = 0; dq < Dh / 32; ++dq) {
+      const int j = 4 * dq;
+      *reinterpret_cast<float4*>(orow + 32 * dq) =
+          make_float4(acc[j][2 * h] / denom, acc[j + 1][2 * h] / denom,
+                      acc[j + 2][2 * h] / denom, acc[j + 3][2 * h] / denom);
+      *reinterpret_cast<float4*>(orow + 32 * dq + 4) =
+          make_float4(acc[j][2 * h + 1] / denom, acc[j + 1][2 * h + 1] / denom,
+                      acc[j + 2][2 * h + 1] / denom, acc[j + 3][2 * h + 1] / denom);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled is a driver-API function: take it through the
 // runtime's entry-point query, so the library needs no -lcuda.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -743,29 +915,36 @@ constexpr int kRegsClaimed = 128 * 24 + kConsumerThreads * 240;
 
 constexpr int kMaxDevices = 64;  // devices whose kernel checks are cached
 
-// The register check and the shared-memory opt-in of flash_fwd_wgmma_kernel
-// <Dh> on the current device. Both hold for the kernel as loaded there, so
-// they run on a device's first launch only: together they cost more host
-// time than the kernel takes at the serving shape. Two threads may both run
-// them once; that is harmless.
-template <int Dh>
-int prepare_wgmma() {
-  static std::atomic<bool> ready[kMaxDevices];
+// Runs `setup` (0 or an error code) on the current device until it succeeds
+// once, then never again there: a kernel's checks and opt-ins hold for the
+// kernel as loaded on a device, and cost more host time than a launch at the
+// serving shape. Two threads may both run it once; that is harmless.
+template <typename Setup>
+int once_per_device(std::atomic<bool> (&ready)[kMaxDevices], Setup setup) {
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const bool cached = dev < kMaxDevices;
   if (cached && ready[dev].load(std::memory_order_acquire)) return 0;
-  const auto kernel = flash_fwd_wgmma_kernel<Dh>;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  if (attr.numRegs * kWgThreads < kRegsClaimed) return kErrRegisters;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             WgLayout<Dh>::kBytes);
-  if (err != cudaSuccess) return err;
+  if (const int code = setup()) return code;
   if (cached) ready[dev].store(true, std::memory_order_release);
   return 0;
+}
+
+// The register check and the shared-memory opt-in of flash_fwd_wgmma_kernel
+// <Dh>.
+template <int Dh>
+int prepare_wgmma() {
+  static std::atomic<bool> ready[kMaxDevices];
+  return once_per_device(ready, [] {
+    const auto kernel = flash_fwd_wgmma_kernel<Dh>;
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (attr.numRegs * kWgThreads < kRegsClaimed) return kErrRegisters;
+    return static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WgLayout<Dh>::kBytes));
+  });
 }
 
 template <int Dh>
@@ -789,32 +968,47 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH, i
   return cudaGetLastError();
 }
 
-template <typename T, int Dh>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int G,
-                   int Sq, int Sk, int causal, int has_window, int window, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<Dh>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, Dh>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<T, Dh><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), G, Sq, Sk, causal, has_window, window, scale);
+// The shared-memory opt-in of flash_fwd_f32_kernel<Dh>.
+template <int Dh>
+int prepare_f32() {
+  static std::atomic<bool> ready[kMaxDevices];
+  return once_per_device(ready, [] {
+    return static_cast<int>(cudaFuncSetAttribute(
+        flash_fwd_f32_kernel<Dh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        F32Layout<Dh>::kBytes));
+  });
+}
+
+template <int Dh>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int G, int Sq,
+               int Sk, int causal, int has_window, int window, float scale, cudaStream_t stream) {
+  using L = F32Layout<Dh>;
+  const long long ctas = static_cast<long long>((Sq + kF32BQ - 1) / kF32BQ) * BH;
+  if (ctas > 0x7fffffffLL) return kErrGrid;
+  if (const int code = prepare_f32<Dh>()) return code;
+  flash_fwd_f32_kernel<Dh><<<static_cast<unsigned>(ctas), L::kThreads, L::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), BH, G, Sq, Sk, causal, has_window, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(int Dh, const void* q, const void* k, const void* v, void* o, int BH, int G,
               int Sq, int Sk, int causal, int has_window, int window, float scale,
-              cudaStream_t stream) {
+              cudaStream_t stream);
+
+// float32 goes to the split-TF32 design.
+template <>
+int launch_dh<float>(int Dh, const void* q, const void* k, const void* v, void* o, int BH,
+                     int G, int Sq, int Sk, int causal, int has_window, int window, float scale,
+                     cudaStream_t stream) {
   switch (Dh) {
     case 64:
-      return launch<T, 64>(q, k, v, o, BH, G, Sq, Sk, causal, has_window, window, scale, stream);
+      return launch_f32<64>(q, k, v, o, BH, G, Sq, Sk, causal, has_window, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, BH, G, Sq, Sk, causal, has_window, window, scale, stream);
+      return launch_f32<128>(q, k, v, o, BH, G, Sq, Sk, causal, has_window, window, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, BH, G, Sq, Sk, causal, has_window, window, scale, stream);
+      return launch_f32<256>(q, k, v, o, BH, G, Sq, Sk, causal, has_window, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -843,7 +1037,7 @@ int launch_dh<__nv_bfloat16>(int Dh, const void* q, const void* k, const void* v
 
 // The C entry point: bf16 = 0 for float32 tensors, 1 for bfloat16. Pointers
 // are contiguous device buffers: q and o (BH, Sq, Dh), k and v (BH / G, Sk,
-// Dh); bf16 ones 16 B aligned. Launches on `stream` without synchronising;
+// Dh), 16 B aligned. Launches on `stream` without synchronising;
 // returns 0 when the launch was accepted, else a CUDA error or one of the
 // kErr* codes above.
 extern "C" int flash_attention_launch(int bf16, const void* q, const void* k, const void* v,

@@ -4,9 +4,11 @@
 replace the Pallas TPU kernel ``src/repro/kernels/flash_attention/kernel.py:28
 _kernel`` (launcher ``flash_attention_bhsd`` :92): for bfloat16, a
 warp-specialised design on ``wgmma`` tensor cores fed by TMA
-(``flash_fwd_wgmma_kernel<Dh>``); for float32, the first FP32-lane design
-(``flash_fwd_kernel<float, Dh>``), since TF32 tensor cores cannot hold the
-float32 tolerance. They are compiled with ``nvcc`` at first use
+(``flash_fwd_wgmma_kernel<Dh>``); for float32, ``mma.sync`` tensor cores in
+split TF32 fed by ``cp.async`` (``flash_fwd_f32_kernel<Dh>``): each product
+is taken as three TF32 products of the operands' big and small parts, which
+holds the float32 tolerance where one TF32 product would not. They are
+compiled with ``nvcc`` at first use
 (``kernels/build.py``) and called through ``ctypes`` on PyTorch's current
 stream; nothing is built when this module is imported.
 
@@ -32,7 +34,8 @@ from repro_torch.kernels import build as build_lib
 
 SOURCE = build_lib.CSRC / "flash_attention.cu"
 NVCC_FLAGS = build_lib.BASE_FLAGS  # no fast math: expf, exp2f must underflow to 0
-# Each design's (query, key) tiles: kBQ, kBK (float32) and kWgBQ, kWgBK (bf16).
+# Each design's (query, key) tiles: kF32BQ, kF32BK (float32) and kWgBQ, kWgBK
+# (bf16).
 TILES = {torch.float32: (64, 32), torch.bfloat16: (128, 64)}
 HEAD_DIMS = (64, 128, 256)  # the kernels' instantiations
 NEG_INF = -1e30  # the reference's masked logit
@@ -48,13 +51,14 @@ def shared_bytes(Dh: int, dtype=torch.bfloat16) -> int:
 
     bf16 (``WgLayout<Dh>::kBytes``): Q (128 rows), two stages of a K and a V
     tile (64 rows each), all Dh bf16 wide, five 8-byte barriers and 1024 B
-    to align the base to the swizzle atom. float32 (``smem_bytes<Dh>()``):
-    the Q and K tiles padded by a column, V, the padded logit tile, and m, l
-    and the correction per row, all float32."""
+    to align the base to the swizzle atom. float32 (``F32Layout<Dh>::
+    kBytes``): the Q tile (64 rows) and two stages of a K and a V tile (32
+    rows each), float32, Q and K rows padded to Dh + 16 and V rows to
+    Dh + 4."""
     bq, bk = TILES[dtype]
     if dtype == torch.bfloat16:
         return 2 * Dh * (bq + 2 * 2 * bk) + 8 * 5 + 1024
-    return 4 * (bq * (Dh + 1) + bk * (Dh + 1) + bk * Dh + bq * (bk + 1) + 3 * bq)
+    return 4 * (bq * (Dh + 16) + 2 * bk * ((Dh + 16) + (Dh + 4)))
 
 
 def build():
@@ -110,17 +114,15 @@ def flash_attention_bhsd_cuda(q, k, v, *, causal=True, window=None, scale=None):
         raise ValueError(f"head dim {Dh} not in the kernel's {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
-    if q.dtype == torch.bfloat16:
-        if -(-Sq // TILES[q.dtype][0]) * BH > 2**31 - 1:
-            raise ValueError(f"{BH} heads of {Sq} queries exceed the grid's 2**31 - 1 CTAs")
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("bf16 q, k, v must be 16-byte aligned (TMA)")
-    elif BH > 65535:
-        raise ValueError(f"BH={BH} exceeds the grid's y limit of 65535")
+    if -(-Sq // TILES[q.dtype][0]) * BH > 2**31 - 1:
+        raise ValueError(f"{BH} heads of {Sq} queries exceed the grid's 2**31 - 1 CTAs")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must be 16-byte aligned (TMA for bf16, cp.async and "
+                         "16-byte loads for float32)")
     scale = Dh**-0.5 if scale is None else scale
     # detlint: ignore[DET005] — both flash kernels store every real query
-    # row's Dh outputs (the float32 kernel's r < nq loop, the bf16 kernel's
-    # rows < Sq), and the grid covers every row
+    # row's Dh outputs (each guarded by rows < Sq), and the grid covers
+    # every row
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -9,6 +9,12 @@ Tolerances: atol 1e-5 in float32 and 2e-2 in bfloat16, the reference test's
 own (``tests/test_flash_attention.py``): the two run the same arithmetic in
 another summation order, and a bfloat16 output may round to the
 neighbouring value.
+
+The float32 kernel takes its products on the tensor cores in split TF32;
+its numerics are emulated here in plain torch inside the plain version's
+online softmax and held to the card's float32 tolerance, |d| <= 1e-5 +
+1e-5|x| (chip_smoke.py, tests/test_torch_gpu.py), which one TF32 product
+does not hold.
 """
 
 import jax.numpy as jnp
@@ -140,6 +146,11 @@ def test_shared_bytes_fit_a_cta(dtype, Dh):
     if dtype == torch.bfloat16:
         bq, bk = t_kernel.TILES[dtype]
         assert (bq * Dh * 2) % 1024 == 0 and (bk * Dh * 2) % 1024 == 0
+    else:  # F32Layout<Dh>::kBytes: Q rows and K/V rows in 16-byte units
+        assert got == {64: 58_368, 128: 107_520, 256: 205_824}[Dh]
+        assert ((Dh + 16) * 4) % 16 == 0 and ((Dh + 4) * 4) % 16 == 0
+        if Dh <= 128:  # two CTAs an SM (228 KB, 1 KB reserved per CTA)
+            assert 2 * (got + 1024) <= 228 * 1024
 
 
 def test_plain_default_tiles_follow_the_dtype():
@@ -169,3 +180,96 @@ def test_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="meta"):  # no mix of devices
         flash_attention(meta, k.reshape(1, 64, 2, 64), v.reshape(1, 64, 2, 64))
     assert t_kernel.flash_attention_bhsd_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Split TF32: the float32 kernel's products, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+_BMM = torch.bmm  # the plain version's products, before any test patches them
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: half a TF32 unit (bit 12) added
+    to the magnitude bits of the float32, then the 13 low bits cleared. The
+    sign bit takes no carry for any finite x, and inf stays inf."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """x = big + small (+ ~2^-22 |x|), both TF32 (the kernel's split_tf32)."""
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _bmm_split(a, b):
+    """a @ b as the kernel takes it: small_a big_b + big_a small_b summed
+    apart from big_a big_b, then the two added; each product of TF32 values
+    exact in float32, every sum in float32."""
+    (ab, a_s), (bb, b_s) = _split(a), _split(b)
+    return _BMM(a_s, bb) + _BMM(ab, b_s) + _BMM(ab, bb)
+
+
+def _bmm_tf32(a, b):
+    """a @ b as one TF32 product on the tensor cores."""
+    return _BMM(_tf32(a), _tf32(b))
+
+
+def _plain_with(monkeypatch, bmm, case, seed=8):
+    """The plain version (float32, its default tiles) with its two products,
+    S = Q K^T and P V, taken by ``bmm``, and without; q and k/v as the card's
+    cases draw them: standard normal, 4 query heads over 2 key/value
+    heads."""
+    Dh, Sq, Sk, causal, window = case
+    q, k, v = (torch.as_tensor(a) for a in _draw(seed, (4, Sq, Dh), (2, Sk, Dh), (2, Sk, Dh)))
+    want = t_kernel.flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "bmm", bmm)
+        got = t_kernel.flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
+    return got.numpy(), want.numpy()
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """The bit operation against rounding to 11 significant bits in float64,
+    on normal float32s of both signs over 200 binades and on exact ties
+    (the 13 dropped bits 0x1000), which go away from zero."""
+    rs = np.random.default_rng(9)
+    bits = rs.integers(0x0C800000, 0x72000000, 20_000, dtype=np.int64)  # 2^-102 .. 2^101
+    bits[:5_000] = (bits[:5_000] & ~0x1FFF) | 0x1000  # ties
+    bits[::2] |= 0x80000000  # negative half
+    x = bits.astype(np.uint32).view(np.float32)
+    got = _tf32(torch.as_tensor(x)).numpy()
+    mag = np.abs(x.astype(np.float64))
+    unit = np.exp2(np.floor(np.log2(mag)) - 10)
+    want = np.sign(x) * np.floor(mag / unit + 0.5) * unit
+    np.testing.assert_array_equal(got.astype(np.float64), want)
+    assert np.all(got.view(np.uint32) & 0x1FFF == 0)
+    big, small = _split(torch.as_tensor(x))
+    assert np.all(small.numpy().view(np.uint32) & 0x1FFF == 0)
+    rest = np.abs(x.astype(np.float64) - big.numpy() - small.numpy())
+    assert np.all(rest <= 2.0**-22 * mag)
+
+
+SPLIT_CASES = [(Dh, Sq, Sk, causal, window)
+               for Dh in t_kernel.HEAD_DIMS
+               for Sq, Sk in ((512, 512), (256, 2048))
+               for causal, window in ((True, None), (True, 128))]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_split_tf32_products_hold_the_float32_tolerance(monkeypatch, case):
+    """Both products of the online softmax in split TF32 stay within the
+    card's float32 tolerance of the plain version: Dh 64/128/256, 512 and
+    2048 keys (Sq 256 end-aligned), causal with and without a window."""
+    got, want = _plain_with(monkeypatch, _bmm_split, case)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("Dh", t_kernel.HEAD_DIMS)
+def test_one_tf32_product_misses_the_float32_tolerance(monkeypatch, Dh):
+    """One TF32 product per product (10 mantissa bits) moves some output
+    past |d| <= 1e-5 + 1e-5|x|: why the kernel splits."""
+    got, want = _plain_with(monkeypatch, _bmm_tf32, (Dh, 512, 512, True, None))
+    excess = np.abs(got - want) - (1e-5 + 1e-5 * np.abs(want))
+    assert excess.max() > 0

@@ -450,7 +450,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, Dh, Sq, Sk, causal, window):
     """Full and ragged tiles (200 x 300: Sq not a multiple of the bf16
     design's 128 query rows, Sk not of its 64 keys), end-aligned queries, a
     window narrower than a key tile, bidirectional; 6 query heads over 2
-    key/value heads. bf16 runs the wgmma kernel, float32 the FP32-lane one."""
+    key/value heads. bf16 runs the wgmma kernel, float32 the split-TF32 one."""
     g = torch.Generator(device=cuda).manual_seed(Dh + Sq)
     draw = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = draw(6, Sq, Dh), draw(2, Sk, Dh), draw(2, Sk, Dh)
@@ -464,32 +464,62 @@ def test_flash_kernel_matches_plain(cuda, dtype, Dh, Sq, Sk, causal, window):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("Dh", f_kernel.HEAD_DIMS)
-def test_flash_kernel_serving_shape(cuda, Dh):
+def test_flash_kernel_serving_shape(cuda, Dh, dtype):
     """One sequence of the serving prefill's shape: Sq = Sk = 512, 12 query
-    heads over 2 key/value heads (G = 6), bf16, causal."""
+    heads over 2 key/value heads (G = 6), causal."""
     g = torch.Generator(device=cuda).manual_seed(Dh)
-    draw = lambda *s: torch.randn(s, generator=g, device=cuda).bfloat16()
+    draw = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = draw(12, 512, Dh), draw(2, 512, Dh), draw(2, 512, Dh)
     got = f_kernel.flash_attention_bhsd_cuda(q, k, v)
     want = f_kernel.flash_attention_bhsd_plain(q, k, v)
-    atol, rtol = FLASH_TOL[torch.bfloat16]
+    atol, rtol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_grid_beyond_the_sms(cuda, causal):
+def test_flash_kernel_grid_beyond_the_sms(cuda, causal, dtype):
     """More CTAs than the card has SMs (8 x 12 heads of 512 queries: 384
-    CTAs of 128 rows), so CTAs wait for a free SM and run in several waves."""
+    CTAs of 128 rows in bf16, 768 of 64 in float32), so CTAs wait for a free
+    SM and run in several waves."""
     g = torch.Generator(device=cuda).manual_seed(int(causal))
-    draw = lambda *s: torch.randn(s, generator=g, device=cuda).bfloat16()
+    draw = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = draw(96, 512, 128), draw(16, 512, 128), draw(16, 512, 128)
-    ctas = -(-512 // f_kernel.TILES[torch.bfloat16][0]) * 96
+    ctas = -(-512 // f_kernel.TILES[dtype][0]) * 96
     assert ctas > torch.cuda.get_device_properties(cuda).multi_processor_count
     got = f_kernel.flash_attention_bhsd_cuda(q, k, v, causal=causal)
     want = f_kernel.flash_attention_bhsd_plain(q, k, v, causal=causal)
-    atol, rtol = FLASH_TOL[torch.bfloat16]
+    atol, rtol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("Dh", f_kernel.HEAD_DIMS)
+def test_flash_float32_reruns_are_bitwise(cuda, Dh):
+    """No CTA splits a row's keys and no sum uses atomics, so two float32
+    launches on the same inputs give the same bits (causal, a window, and
+    end-aligned ragged tiles)."""
+    g = torch.Generator(device=cuda).manual_seed(Dh + 1)
+    draw = lambda *s: torch.randn(s, generator=g, device=cuda)
+    for Sq, Sk, window in ((512, 512, None), (512, 512, 96), (200, 333, None)):
+        q, k, v = draw(12, Sq, Dh), draw(2, Sk, Dh), draw(2, Sk, Dh)
+        a = f_kernel.flash_attention_bhsd_cuda(q, k, v, window=window)
+        b = f_kernel.flash_attention_bhsd_cuda(q, k, v, window=window)
+        assert torch.equal(a, b)
+
+
+def test_flash_float32_takes_more_than_65535_heads(cuda):
+    """The 1-D grid takes BH > 65535 (a grid's y dimension stops there):
+    65,544 query heads over 8,193 key/value heads, Sq 8 of Sk 24, against
+    the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    draw = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q, k, v = draw(65_544, 8, 64), draw(8_193, 24, 64), draw(8_193, 24, 64)
+    got = f_kernel.flash_attention_bhsd_cuda(q, k, v)
+    want = f_kernel.flash_attention_bhsd_plain(q, k, v)
+    atol, rtol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
 def test_flash_wrapper_refuses_bad_inputs(cuda):
@@ -512,6 +542,9 @@ def test_flash_wrapper_refuses_bad_inputs(cuda):
     odd = torch.empty(4 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(4, 64, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):  # TMA needs aligned rows
         f_kernel.flash_attention_bhsd_cuda(odd, k.bfloat16(), k.bfloat16())
+    odd = torch.empty(4 * 64 * 64 + 1, device=cuda)[1:].view(4, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # so does cp.async
+        f_kernel.flash_attention_bhsd_cuda(odd, k, k)
     assert f_kernel.flash_attention_bhsd_cuda.launches == before
 
 

@@ -20,6 +20,7 @@ import dataclasses
 import json
 import os
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -35,6 +36,7 @@ from repro_torch.api.spec import ResilienceSpec
 from repro_torch.checkpoint import CheckpointCorruptionError, CheckpointManager, leaf_digest
 from repro_torch.core import simulator as sim_lib
 from repro_torch.data import digital_twin_population
+from repro_torch.engine import core as core_lib
 from repro_torch.engine.core import EngineCore, ResumeKeyError
 from repro_torch.launch import simulate
 from repro_torch.runtime import (
@@ -323,10 +325,37 @@ def test_chaos_recovery_sequential_engine(pop, reference, tmp_path):
     assert res.provenance["resilience"]["restarts"] == 1
 
 
-def test_straggler_detection_and_repartition(pop, reference, tmp_path):
-    """A chunk slowed well past 3x the median (a 2-day chunk takes ~0.2 s on
-    the CPU's plain path, so the sleep is 2.5 s) is flagged and rebuilds
-    the driver once; the run stays bitwise."""
+class _ChunkClock:
+    """A stand-in for the ``time`` module of the chunk loop and the chaos
+    schedule: ``perf_counter`` advances a fixed tick per call and ``sleep``
+    advances it by its argument, so a chunk's timed section lasts exactly
+    one tick plus the chaos sleep, whatever the machine's load. Every other
+    attribute is the real module's."""
+
+    TICK = 0.1
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        self.now += self.TICK
+        return self.now
+
+    def sleep(self, s):
+        self.now += s
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_straggler_detection_and_repartition(pop, reference, tmp_path, monkeypatch):
+    """A chunk slowed well past 3x the median (each 2-day chunk takes one
+    0.1 s tick of the chunk clock, the slowed one 2.5 s more) is flagged and
+    rebuilds the driver once; the run stays bitwise. The clock is the test's
+    own, so a loaded machine cannot add or hide a straggler."""
+    clock = _ChunkClock()
+    monkeypatch.setattr(core_lib, "time", clock)
+    monkeypatch.setattr(chaos_lib, "time", clock)
     spec = _spec().with_overrides(ckpt_dir=str(tmp_path), ckpt_every=2)
     spec = dataclasses.replace(spec, resilience=ResilienceSpec(
         enabled=True, repartition_on_straggler=True, straggler_factor=3.0))

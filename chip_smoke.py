@@ -4,12 +4,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --interactions-only SRC_DIR
     python3 chip_smoke.py --flash-only SRC_DIR
+    python3 chip_smoke.py --families-only
 
 The second form runs phases 1 and 3 alone on the interaction kernels of the
 checkout whose src/ directory is given (an earlier commit's, unpacked with
 git archive, to time its kernels beside this one's in one call); the third
 runs phase 6 alone on that checkout's flash-attention kernels, with this
-script's cases, inputs, timers and bounds.
+script's cases, inputs, timers and bounds; the fourth runs phase 7b alone.
 
 Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
@@ -84,8 +85,10 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      bitwise against its solo run; and
      ``python -m repro_torch.launch.serve_sim --check`` once;
   4g. meshes — ranks started by ``repro_torch.launch.mesh.spawn`` (every
-     group's timeout 60 s, each spawn's wall limit 400 s); the ranks share
-     one card, so no scaling claim: (a) one rank over nccl, the ``workers``
+     group's timeout 60 s, each spawn's wall limit 700 s; the three spawns
+     start before phase 4e and run at once, beside phases 4e and 4f, whose
+     times include their load); the ranks share one card, so no scaling
+     claim: (a) one rank over nccl, the ``workers``
      layout W = 1 (the exchange runs, all to itself) on each backend, the
      day loop under sync-debug "error", history and final state bitwise
      phase 4's; (b) two ranks sharing cuda:0 over gloo, W = 2, the same
@@ -141,7 +144,8 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      S=512, 12 query heads over 2 KV heads, Dh=128, bf16, causal) and in
      extra cases (Dh 64 and 256, float32 at Dh 64/128/256 and 2048 keys,
      end-aligned Sq < Sk, a window of 128, ragged tiles, a long 2048-token
-     causal prefill), each within its stated tolerance; times of the kernel,
+     causal prefill, and phase 7b's prefill shapes: llava, mixtral,
+     moonshot, recurrentgemma at 128 and 2,560 tokens, whisper), each within its stated tolerance; times of the kernel,
      the plain version and F.scaled_dot_product_attention (the library
      yardstick, never used by the port; in float32 the profiler names the
      kernels it runs), and the bound (float32: under the split-TF32 model
@@ -152,10 +156,25 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      tokens: 28 kernel launches per prefill, the prefill's last logits
      against the replay's at position 511 and a "naive" prefill, a second
      session giving identical tokens; prefill ms, decode ms per step and
-     tokens/s.
+     tokens/s;
+  7b. the other families — serve() at full width, bf16, "flash", batch 8,
+     prompt 128, 16 greedy tokens, one model at a time (FAMILY_CASES):
+     llava-next-mistral-7b (32 layers, 576 zero patches), mixtral-8x7b (4 of
+     32 layers, served twice: identical tokens), moonshot-v1-16b-a3b (6 of
+     48), recurrentgemma-9b (38) and mamba2-130m (24); flash launches per
+     prefill 32 / 4 / 6 / 12 / 0; the prefill's last logits against a
+     "naive" prefill and against the replay at position 127 (vlm: the
+     replay against a text-only prefill, since decode never sees the
+     patches; moe: at a capacity where nothing drops, a row exempt from the
+     layer where its own last token routes differently at a near tie;
+     ssm: the bf16 replay on 6 layers, the full depth's in float32); a
+     recurrentgemma prefill at S = 2,560 (past its 2,048 window) against
+     naive; whisper-base through models/model.py (1,500 frames, a 64-token
+     prompt, 6 flash launches, then 16 decode steps); prefill ms, decode ms
+     per step, tokens/s and peak memory per family.
 
 The line before the last is the kernels' JSON record (``launches``: phase
-4d's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
+4d's; flash's ``launches`` phase 7's, ``family_launches`` phase 7b's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
 phase 4g (a)-(d)'s, ``mesh_served_launches``: phase 4g (e)'s mixes and
 ``shrink_launches``: phase 4h (a)-(b)'s, each summed over its ranks;
 ``eager_launches``: phase 4i's run_eager); the last line is
@@ -265,9 +284,19 @@ FLASH_CASES = (
     ("f32_dh64", 8, 12, 2, 512, 512, 64, torch.float32, True, None),
     ("f32_dh256", 8, 12, 2, 512, 512, 256, torch.float32, True, None),
     ("f32_long", 8, 12, 2, 2048, 2048, 128, torch.float32, True, None),
+    # phase 7b's prefill shapes: llava (576 patches + 128 tokens, window
+    # 4096), mixtral (window 4096), moonshot (16 query heads over 16 KV
+    # heads), recurrentgemma (16 query heads over one KV head, Dh 256, window
+    # 2048; at 2,560 tokens past the window), whisper's decoder
+    ("llava", 8, 32, 8, 704, 704, 128, torch.bfloat16, True, 4096),
+    ("mixtral", 8, 32, 8, 128, 128, 128, torch.bfloat16, True, 4096),
+    ("moonshot", 8, 16, 16, 128, 128, 128, torch.bfloat16, True, None),
+    ("rgemma", 8, 16, 1, 128, 128, 256, torch.bfloat16, True, 2048),
+    ("rgemma_2560", 4, 16, 1, 2560, 2560, 256, torch.bfloat16, True, 2048),
+    ("whisper", 8, 8, 8, 64, 64, 64, torch.bfloat16, True, None),
 )
 # the plain version's timed calls (default 20)
-FLASH_PLAIN_REPS = {"long": 3, "f32_long": 3}
+FLASH_PLAIN_REPS = {"long": 3, "f32_long": 3, "rgemma_2560": 3}
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:28"
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen2-1.5b", 8, 512, 32
 # Prefill logits (bf16 compute) against the replay's at prompt_len - 1 and
@@ -814,6 +843,407 @@ def serve_phase(fk, card: str) -> int:
         f"tokens identical across sessions; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches[0]
+
+
+# Phase 7b: the other families served at full width through serve(), bf16,
+# attn_impl "flash", seeded random weights drawn on the card, batch 8, prompt
+# 128 (each session replays 127 positions and generates 16), one model at a
+# time: (arch, layers run (None: all), flash launches per prefill). Depth is
+# cut only where one card's memory forces it: mixtral's 32 layers of eight
+# 4096 x 14336 experts are ~93 GB in bf16, moonshot's 48 layers of 64
+# experts ~33 GB (with the float32 draw they come from, more than one card).
+FAMILY_CASES = (
+    ("llava-next-mistral-7b", None, 32),
+    ("mixtral-8x7b", 4, 4),
+    ("moonshot-v1-16b-a3b", 6, 6),
+    ("recurrentgemma-9b", None, 12),
+    ("mamba2-130m", None, 0),
+)
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 8, 128, 16
+FAMILY_RERUN = "mixtral-8x7b"  # served twice: identical tokens
+# recurrentgemma prefilled past its 2,048-token local window against naive
+WINDOW_ARCH, WINDOW_BATCH, WINDOW_S = "recurrentgemma-9b", 4, 2560
+# whisper through models/model.py (the serve driver refuses audio, as the
+# reference's): 1,500 frames, a 64-token prompt, then 16 decode steps
+AUDIO_ARCH, AUDIO_PROMPT, AUDIO_STEPS, AUDIO_FLASH = "whisper-base", 64, 16, 6
+# A MoE routing decision the rounding cannot order: a token's top-k experts
+# may differ between two paths whose router logits for that token agree
+# within this fraction of the layer's largest |router logit|: one bf16 step
+# there (the router's bf16 logits round to 2^-8..2^-7 of their magnitude).
+# On an H100 the largest such difference at a token routed differently was
+# 0.0039 of 0.918 (moonshot) and 0.0029 of 1.07 (mixtral): 2^-7.9 and
+# 2^-8.5. See moe_exempt_rows for the rows this exempts.
+ROUTER_TIE_TOL = 2**-7
+# The ssm replay in float32 compute against its prefill: the decode
+# recurrence and the chunked scan sum in other orders (on the CPU at 24
+# layers: the port's replay 4.1e-5 of max |logit| from its prefill, the
+# reference's 6.2e-5 from its own)
+F32_REL_TOL = 1e-3
+# mamba2's bf16 replay is held to SERVE_REL_TOL on a cut of this depth,
+# where the reference's own replay reads 0.024 of max |logit| on the CPU
+SSM_BF16_LAYERS = 6
+
+
+def moe_routes(fn):
+    """fn()'s result and, for each MoE layer call it made, the dispatch's
+    own routing (``moe.assign``): router logits (T, E) and each token's kept
+    experts (T, K; -1 where dropped over capacity). The record keeps the
+    dispatch's tensors (no copy, no sync), so it adds nothing to a timed
+    session."""
+    from repro_torch.models import moe as moe_lib
+
+    record, orig = [], moe_lib.assign
+
+    def recorded(router_logits, k, C):
+        out = orig(router_logits, k, C)
+        record.append((router_logits, out[1], out[3]))
+        return out
+
+    moe_lib.assign = recorded
+    try:
+        result = fn()
+    finally:
+        moe_lib.assign = orig
+    return result, [(lg, torch.where(keep, gi.reshape(-1), -1).reshape(gi.shape))
+                    for lg, gi, keep in record]
+
+
+def dropped_fraction(calls) -> float:
+    """The assignments dropped over capacity, as a fraction (mean over calls)."""
+    return float(sum(float((kept < 0).float().mean()) for _, kept in calls)) / len(calls)
+
+
+def moe_exempt_rows(a_calls, b_calls, a_last, b_last) -> tuple:
+    """The rows whose logits two runs' MoE layer calls (each dropping
+    nothing) leave ill-posed to compare. Row r's last token is
+    ``a_last[r]`` in each of ``a_calls`` and ``b_last[r]`` in ``b_calls``.
+    With nothing dropped, a row's routing depends on its own tokens alone.
+    Walking the layers in order, a row becomes exempt in the first layer
+    where its last token is routed to other experts with its own router
+    logits within ROUTER_TIE_TOL of the layer's largest (a near tie), and
+    stays exempt (its hidden state differs after that). A last token routed
+    otherwise in a row not yet exempt is a fault. Returns (rows, log text)."""
+    rows, notes = set(), []
+    for layer, ((la, ka), (lb, kb)) in enumerate(zip(a_calls, b_calls)):
+        if bool((ka < 0).any()) or bool((kb < 0).any()):
+            raise AssertionError(f"MoE layer {layer}: an assignment was dropped")
+        scale = float(la.abs().max())
+        for r, (ta, tb) in enumerate(zip(a_last, b_last)):
+            if r in rows or torch.equal(ka[ta].sort().values, kb[tb].sort().values):
+                continue
+            d = float((la[ta] - lb[tb]).abs().max())
+            if d > ROUTER_TIE_TOL * scale:
+                raise AssertionError(f"MoE layer {layer}: row {r}'s last token routed "
+                                     f"differently with no near tie (its router logits "
+                                     f"differ by {d} of {scale})")
+            rows.add(r)
+            notes.append(f"layer {layer}: row {r} (its router |d| {d:.4g} of {scale:.4g})")
+    return rows, "; ".join(notes) or "none"
+
+
+def held_rows(pre, other, rows, what: str, label: str, tol=SERVE_REL_TOL) -> None:
+    """``pre`` against ``other`` ((B, 1, V) logits) on the rows not in
+    ``rows``, within ``tol`` of the largest |logit|."""
+    scale = float(pre.abs().max())
+    d_rows = (pre.float() - other.float()).abs().amax(dim=(1, 2))
+    held = [r for r in range(pre.shape[0]) if r not in rows]
+    if not held:
+        raise AssertionError(f"[family:{label}] {what}: every row exempt")
+    d = float(d_rows[held].max())
+    agree = float((pre.argmax(-1) == other.argmax(-1)).float().mean())
+    log(f"[family:{label}] prefill logits against {what}: max |d| {d:.5f} over rows {held} "
+        f"of max |logit| {scale:.4f} (tolerance {tol} x that; per row "
+        f"{[round(float(v), 4) for v in d_rows]}), argmax agreement {agree:.3f}")
+    if d > tol * scale:
+        raise AssertionError(f"[family:{label}] prefill logits against {what}: {d} > "
+                             f"{tol} x {scale}")
+
+
+def moe_replay(cfg, params, prompts, res, calls, pre_last, label: str) -> None:
+    """The MoE replay against its prefill: held where the prefill dropped
+    nothing; where it dropped (a decode step of FAMILY_BATCH tokens cannot),
+    the session is served again at a capacity factor of E / K, where
+    nothing can drop, and that replay is held to that prefill."""
+    import dataclasses
+
+    from repro_torch.launch.serve import serve
+
+    L = cfg.num_layers
+    dropped = dropped_fraction(calls[:L])
+    log(f"[family:{label}] the prefill dropped {dropped:.6f} of its assignments "
+        f"(mean over layers) at capacity factor {cfg.capacity_factor}")
+    if dropped > 0.0:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+        res, calls = moe_routes(lambda: serve(cfg, params, prompts, FAMILY_GEN, device="cuda"))
+    step = calls[L + (FAMILY_PROMPT - 1) * L:L + FAMILY_PROMPT * L]
+    rows, note = moe_exempt_rows(calls[:L], step, pre_last, list(range(FAMILY_BATCH)))
+    log(f"[family:{label}] replay routed differently from prefill: {note}")
+    held_rows(res.prefill_logits, res.replay_logits, rows,
+              f"replay at capacity factor {cfg.capacity_factor}", label)
+
+
+def ssm_replay(cfg, prompts, pre, rep, label: str) -> None:
+    """The ssm replay against its prefill. In bf16 the recurrence's rounding
+    grows through mamba2's 24 layers of random weights in the reference too
+    (on the CPU, at full width, vocab cut to 4,096, a 64-token prompt: the
+    reference's replay against its own prefill 0.217 of max |logit| in
+    bf16, 6.2e-5 in float32; 0.024 at 6 layers), so the full depth's bf16
+    gap is logged; the bf16 replay is held on SSM_BF16_LAYERS layers, and
+    the full depth's in float32 compute."""
+    import dataclasses
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    d = float((pre - rep).abs().max())
+    log(f"[family:{label}] bf16 replay against prefill at {cfg.num_layers} layers (held at "
+        f"{SSM_BF16_LAYERS} and in float32): max |d| {d:.5f} of max "
+        f"|logit| {float(pre.abs().max()):.4f}")
+    cut = dataclasses.replace(cfg, num_layers=SSM_BF16_LAYERS)
+    res = serve(cut, family_params(cut), prompts, FAMILY_GEN, device="cuda")
+    held_rows(res.prefill_logits, res.replay_logits, set(),
+              f"bf16 replay on {SSM_BF16_LAYERS} of {cfg.num_layers} layers", label)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    # detlint: ignore[DET001] — the same seeded random weights, in float32
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    res = serve(cfg, params, prompts, FAMILY_GEN, device="cuda")
+    held_rows(res.prefill_logits, res.replay_logits, set(), "replay in float32 compute",
+              label, tol=F32_REL_TOL)
+
+
+def family_params(cfg):
+    """Seeded random parameters drawn on the card (float32, as init_params
+    draws them), cast once to bf16; the float32 draw is freed."""
+    from repro_torch.models import model as M
+
+    # detlint: ignore[DET001] — random model weights from a seed (the LM
+    # side-stack serves random weights), not simulation state
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    p16 = M.cast_params(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return p16
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def family_serve(fk, arch: str, layers, expect: int, card: str) -> dict:
+    """One family served at full width (see FAMILY_CASES); returns its
+    flash launches per prefill and times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.serve import serve, summary
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf_lib
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, compute_dtype="bfloat16", attn_impl="flash",
+                              num_layers=layers or full.num_layers)
+    label = cfg.name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = family_params(cfg)
+    prompts = TokenPipeline(cfg.vocab_size, FAMILY_PROMPT, FAMILY_BATCH, 0).batch(0)
+    toks = torch.as_tensor(prompts, device="cuda").long()
+    torch.cuda.synchronize()
+    log(f"[family:{label}] {cfg.family}: {cfg.num_layers} of {full.num_layers} layers, "
+        f"d_model {cfg.d_model}, {M.param_count(cfg)} parameters run "
+        f"({M.param_count(full)} at full depth), compute {cfg.compute_dtype}, attn_impl "
+        f"{cfg.attn_impl}; weights drawn and cast in {time.perf_counter() - t0:.1f} s")
+    is_moe = cfg.family == "moe"
+    sessions, launches, calls = [], [], []
+    for _ in range(2 if arch == FAMILY_RERUN else 1):
+        fk.flash_attention_bhsd_cuda.launches = 0
+        res, c = moe_routes(lambda: serve(cfg, params, prompts, FAMILY_GEN, device="cuda"))
+        launches.append(fk.flash_attention_bhsd_cuda.launches)
+        sessions.append(res)
+        calls.append(c)
+    if launches != [expect] * len(sessions):
+        raise AssertionError(f"[family:{label}] flash launches per session {launches}, "
+                             f"expected {expect} (one prefill)")
+    res = sessions[0]
+    if len(sessions) > 1 and not np.array_equal(res.tokens, sessions[1].tokens):
+        raise AssertionError(f"[family:{label}] a second session generated other tokens")
+    pre, rep = res.prefill_logits.float(), res.replay_logits.float()
+    V = cfg.vocab_size
+    if pre.shape != (FAMILY_BATCH, 1, V) or not torch.isfinite(pre).all() \
+            or not torch.isfinite(rep).all():
+        raise AssertionError(f"[family:{label}] prefill logits {tuple(pre.shape)} not finite "
+                             f"(B, 1, {V})")
+    if res.tokens.shape != (FAMILY_BATCH, FAMILY_GEN) or res.tokens.min() < 0 \
+            or res.tokens.max() >= V:
+        raise AssertionError(f"[family:{label}] generated tokens {res.tokens.shape} out of range")
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros((FAMILY_BATCH, cfg.num_patches, cfg.d_model),
+                                            dtype=torch.float32, device="cuda")
+    S = FAMILY_PROMPT + cfg.num_patches
+    pre_last = [r * S + S - 1 for r in range(FAMILY_BATCH)]
+    # A MoE drop depends on every earlier token of the batch (token-major
+    # positions), so one row's near tie moves another row's drops: the MoE's
+    # flash prefill is held to its naive one at capacity factor E / K, where
+    # nothing drops and each row's routing is its own.
+    hcfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token) \
+        if is_moe else cfg
+    with torch.no_grad():
+        (_, warm_ms) = timed(lambda: M.forward_prefill(cfg, params, batch))
+        fk.flash_attention_bhsd_cuda.launches = 0
+        held, held_calls = moe_routes(lambda: M.forward_prefill(hcfg, params, batch)[0])
+        if fk.flash_attention_bhsd_cuda.launches != expect:
+            raise AssertionError(f"[family:{label}] {fk.flash_attention_bhsd_cuda.launches} "
+                                 f"flash launches per prefill, expected {expect}")
+        naive, naive_calls = moe_routes(lambda: M.forward_prefill(
+            dataclasses.replace(hcfg, attn_impl="naive"), params, batch)[0])
+    rows, note = (moe_exempt_rows(held_calls, naive_calls, pre_last, pre_last)
+                  if is_moe else (set(), "none"))
+    if is_moe:
+        log(f"[family:{label}] at capacity factor {hcfg.capacity_factor}, routed differently "
+            f"from naive: {note}")
+    held_rows(held, naive, rows, "naive" + (f" at capacity factor {hcfg.capacity_factor}"
+                                            if is_moe else ""), label)
+    if cfg.family == "vlm":  # the replay never sees the patches (ROADMAP queue 3)
+        with torch.no_grad():
+            text = M.forward_prefill(dataclasses.replace(cfg, family="dense"), params,
+                                     {"tokens": toks})[0]
+        held_rows(text, rep, set(), "the text-only replay (against a text-only prefill)", label)
+    elif is_moe:
+        moe_replay(cfg, params, prompts, res, calls[0], pre_last, label)
+    elif cfg.family == "ssm":
+        ssm_replay(cfg, prompts, pre, rep, label)
+    else:
+        held_rows(pre, rep, set(), "replay", label)
+    out = {"launches": launches[0], "prefill_ms": 1e3 * res.prefill_s, "warm_prefill_ms": warm_ms,
+           "decode_ms": 1e3 * res.decode_s / res.decode_steps,
+           "tokens_per_s": res.tokens.size / res.decode_s}
+    if arch == WINDOW_ARCH:
+        wtoks = torch.as_tensor(TokenPipeline(cfg.vocab_size, WINDOW_S, WINDOW_BATCH, 1).batch(0),
+                                device="cuda").long()
+        with torch.no_grad():
+            fk.flash_attention_bhsd_cuda.launches = 0
+            (wl, _), w_ms = timed(lambda: M.forward_prefill(cfg, params, {"tokens": wtoks}))
+            n = fk.flash_attention_bhsd_cuda.launches
+            wn = M.forward_prefill(dataclasses.replace(cfg, attn_impl="naive"), params,
+                                   {"tokens": wtoks})[0]
+        if n != expect:
+            raise AssertionError(f"[family:{label}] S={WINDOW_S}: {n} flash launches, "
+                                 f"expected {expect}")
+        if not torch.isfinite(wl.float()).all():
+            raise AssertionError(f"[family:{label}] S={WINDOW_S}: non-finite logits")
+        held_rows(wl, wn, set(), f"naive at S={WINDOW_S} > local_window {cfg.local_window}",
+                  label)
+        out["window_prefill_ms"] = w_ms
+        log(f"[family:{label}] S={WINDOW_S} batch {WINDOW_BATCH}: prefill_ms={w_ms:.3f}; {card}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for i, r in enumerate(sessions):
+        log(f"[family:{label}] session {i + 1}: prefill_ms={1e3 * r.prefill_s:.3f} (warm "
+            f"{warm_ms:.3f}) decode_ms_per_step={1e3 * r.decode_s / r.decode_steps:.3f} "
+            f"({r.decode_steps} steps of batch {FAMILY_BATCH}: {FAMILY_PROMPT - 1} replayed, "
+            f"{FAMILY_GEN} generated) tokens_per_s={r.tokens.size / r.decode_s:.2f} "
+            f"flash {launches[i]} per prefill; peak memory {out['peak_gib']:.2f} GiB; {card}")
+        log(f"[family:{label}:{i + 1}] {json.dumps(summary(cfg, r))}")
+    del params, sessions, res, calls, held_calls, naive_calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def audio_phase(fk, card: str) -> dict:
+    """whisper-base through models/model.py: a prefill over 1,500 frames
+    and a 64-token prompt against its naive prefill, then AUDIO_STEPS greedy
+    decode steps on a fresh cache (whose cross-attention keys stay zero, as
+    the reference's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH), compute_dtype="bfloat16",
+                              attn_impl="flash")
+    label = cfg.name
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(cfg)
+    # detlint: ignore[DET001] — the stubbed frontend's frame embeddings, seeded
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # detlint: ignore[DET001] — the same seeded frames
+    frames = torch.randn((FAMILY_BATCH, cfg.enc_frames, cfg.d_model), generator=gen,
+                         device="cuda")
+    toks = torch.as_tensor(TokenPipeline(cfg.vocab_size, AUDIO_PROMPT, FAMILY_BATCH, 0).batch(0),
+                           device="cuda").long()
+    batch = {"frames": frames, "tokens": toks}
+    with torch.no_grad():
+        fk.flash_attention_bhsd_cuda.launches = 0
+        (logits, enc), first_ms = timed(lambda: M.forward_prefill(cfg, params, batch))
+        n = fk.flash_attention_bhsd_cuda.launches
+        _, warm_ms = timed(lambda: M.forward_prefill(cfg, params, batch))
+        naive = M.forward_prefill(dataclasses.replace(cfg, attn_impl="naive"), params, batch)[0]
+        if n != AUDIO_FLASH:
+            raise AssertionError(f"[family:{label}] {n} flash launches per prefill, "
+                                 f"expected {AUDIO_FLASH} (the decoder's self-attention)")
+        if enc["enc_out"].shape != (FAMILY_BATCH, cfg.enc_frames, cfg.d_model) or \
+                not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"[family:{label}] prefill outputs malformed")
+        held_rows(logits, naive, set(), "naive", label)
+        cache = M.init_cache(cfg, FAMILY_BATCH, AUDIO_STEPS, device="cuda")
+        tok, out = toks[:, :1], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(AUDIO_STEPS):
+            lg, cache = M.decode_step(cfg, params, cache, tok, pos)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            out.append(tok)
+        torch.cuda.synchronize()
+        dec_ms = 1e3 * (time.perf_counter() - t0) / AUDIO_STEPS
+    gen_toks = torch.cat(out, 1)
+    if not torch.isfinite(lg.float()).all() or int(gen_toks.min()) < 0 or \
+            int(gen_toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"[family:{label}] decode logits or tokens malformed")
+    if cache["xk"].any() or cache["xv"].any():
+        raise AssertionError(f"[family:{label}] the cross-attention cache is no longer zero")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[family:{label}] audio: prefill ({cfg.enc_frames} frames, {AUDIO_PROMPT} tokens, batch "
+        f"{FAMILY_BATCH}) prefill_ms={first_ms:.3f} (warm {warm_ms:.3f}), flash {n} per "
+        f"prefill; {AUDIO_STEPS} decode steps decode_ms_per_step={dec_ms:.3f} "
+        f"tokens_per_s={FAMILY_BATCH * 1e3 / dec_ms:.2f}; peak memory {peak:.2f} GiB; {card}")
+    del params, cache, enc
+    torch.cuda.empty_cache()
+    return {"launches": n, "prefill_ms": first_ms, "warm_prefill_ms": warm_ms,
+            "decode_ms": dec_ms, "tokens_per_s": FAMILY_BATCH * 1e3 / dec_ms, "peak_gib": peak}
+
+
+def families_phase(fk, card: str) -> dict:
+    """Phase 7b: every family but dense at full width; returns each arch's
+    record (flash launches per prefill, times, peak memory)."""
+    out = {}
+    for arch, layers, expect in FAMILY_CASES:
+        out[arch] = family_serve(fk, arch, layers, expect, card)
+    out[AUDIO_ARCH] = audio_phase(fk, card)
+    return out
+
+
+def families_only() -> int:
+    """Phases 1, the flash build and 7b alone."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    card = card_line()
+    log(f"[device] {card}")
+    t0 = time.perf_counter()
+    _, report = fk.build()
+    log(f"[build] {os.path.relpath(fk.SOURCE, ROOT)} in {time.perf_counter() - t0:.2f} s")
+    stamp("families")
+    rec = families_phase(fk, card)
+    stamp("end")
+    log(card)
+    log(json.dumps({"families": rec}))
+    return 0
 
 
 def interaction_states(core, covid, ops):
@@ -1704,7 +2134,7 @@ def served_phase(pop, epi, cores, wrappers, card) -> dict:
 
 
 MESH_TIMEOUT_S = 60.0  # every group's timeout in phase 4g
-MESH_WALL_S = 400.0  # the wall limit of each spawn
+MESH_WALL_S = 700.0  # the wall limit of each spawn (they run at once, beside 4e-4f)
 MESH_ROOT = os.path.join(ROOT, "build", "chip_smoke_mesh")
 
 
@@ -2019,8 +2449,42 @@ def _same_as_local(r: dict, ref: tuple, P: int, what: str) -> None:
             raise AssertionError(f"{what}: final '{f}' differs from the local run")
 
 
-def mesh_phase(pop, wrappers, local, studies, tti_hist, card) -> dict:
-    """Phase 4g: the mesh layouts on one card. ``local``: phase 4/4c's runs
+def start_mesh_spawns(pop) -> dict:
+    """Start phase 4g's three spawns (one rank over nccl, two and four over
+    gloo, each in its own rendezvous and checkpoint directories) in
+    background threads; :func:`mesh_phase` takes their results. The ranks'
+    work is mostly host work (plans, tables, gloo round trips) that took
+    ~450 s of the script's 1,200 one spawn after another on a slow host, so
+    the spawns run at once and beside phases 4e and 4f, whose times include
+    that load. Returns each spawn's future of (results, wall s)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    for d in (MESH_ROOT, SHRINK_ROOT):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    init = tempfile.mkdtemp(prefix="pg-", dir=MESH_ROOT)
+
+    def spawn(fn, n, backend, *args):
+        t0 = time.perf_counter()
+        out = mesh_lib.spawn(fn, n, backend=backend, device="cuda:0", init_dir=init,
+                             args=(pop, DAYS, *args), timeout_s=MESH_TIMEOUT_S,
+                             wall_s=MESH_WALL_S)
+        return out, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(max_workers=3)
+    jobs = {"one": pool.submit(spawn, _rank_nccl, 1, "nccl"),
+            "two": pool.submit(spawn, _rank_two, 2, "gloo", MESH_ROOT),
+            "four": pool.submit(spawn, _rank_four, 4, "gloo")}
+    pool.shutdown(wait=False)
+    return jobs
+
+
+def mesh_phase(pop, wrappers, local, studies, tti_hist, jobs, card) -> dict:
+    """Phase 4g: the mesh layouts on one card, from the spawns that
+    :func:`start_mesh_spawns` started (``jobs``). ``local``: phase 4/4c's runs
     by (preset, backend) -> (final, hist); ``studies``: phase 4d's api.run
     results by width; ``tti_hist``: phase 4d's TTI ensemble history. The
     same spawns run phase 4g (e) (the mesh servers) and phase 4h (a) and (b)
@@ -2029,24 +2493,16 @@ def mesh_phase(pop, wrappers, local, studies, tti_hist, card) -> dict:
     mixes' launches by kernel, each summed over ranks, and phase 4h's
     results of the two- and four-rank spawns."""
     import shutil
-    import tempfile
 
     from repro_torch.api import observables as obs_lib
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.engine import EngineCore, core as core_lib
-    from repro_torch.launch import mesh as mesh_lib
 
     P, days = pop.num_people, DAYS
     log(f"[mesh] ranks share one card; no scaling claim. {DAYS} days of {DATASET}; "
         f"every group's timeout {MESH_TIMEOUT_S:.0f} s, each spawn's wall limit "
-        f"{MESH_WALL_S:.0f} s; {card}")
-    for d in (MESH_ROOT, SHRINK_ROOT):
-        shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d)
-    init = tempfile.mkdtemp(prefix="pg-", dir=MESH_ROOT)
-    spawn = lambda fn, n, backend, *args: mesh_lib.spawn(
-        fn, n, backend=backend, device="cuda:0", init_dir=init, args=(pop, days, *args),
-        timeout_s=MESH_TIMEOUT_S, wall_s=MESH_WALL_S)
+        f"{MESH_WALL_S:.0f} s; the three spawns ran at once, beside phases 4e and 4f; "
+        f"{card}")
     total = {k: 0 for k in KERNELS}
 
     def launched(launches, kname, n, what):
@@ -2060,10 +2516,9 @@ def mesh_phase(pop, wrappers, local, studies, tti_hist, card) -> dict:
              ("tti", "pallas"): "interactions_padded_traced"}
 
     # (a) one rank over nccl
+    (one,), wall = jobs["one"].result()
     stamp("mesh (a): one rank over nccl")
-    t0 = time.perf_counter()
-    (one,) = spawn(_rank_nccl, 1, "nccl")
-    log(f"[mesh] (a) spawn of 1 rank: {time.perf_counter() - t0:.1f} s")
+    log(f"[mesh] (a) spawn of 1 rank: {wall:.1f} s")
     for key in (("none", "pallas-compact"), ("none", "pallas")):
         r = one[key]
         launched(r["launches"], kname[key], days, f"mesh W=1 nccl {key}")
@@ -2074,10 +2529,9 @@ def mesh_phase(pop, wrappers, local, studies, tti_hist, card) -> dict:
         f"cut unlike the local layout: {one['fold_mismatches']}")
 
     # (b)-(d) two ranks sharing the card over gloo
+    two, wall = jobs["two"].result()
     stamp("mesh (b)-(d): two ranks over gloo")
-    t0 = time.perf_counter()
-    two = spawn(_rank_two, 2, "gloo", MESH_ROOT)
-    log(f"[mesh] (b)-(d) spawn of 2 ranks: {time.perf_counter() - t0:.1f} s")
+    log(f"[mesh] (b)-(d) spawn of 2 ranks: {wall:.1f} s")
     for rank, res in enumerate(two):
         log(f"[mesh] (b) rank {rank}: plan build (W=2) {res['workers']['plan_build_s']:.2f} s "
             f"on the host; location runs cut unlike the local layout: "
@@ -2135,10 +2589,9 @@ def mesh_phase(pop, wrappers, local, studies, tti_hist, card) -> dict:
         f"bitwise the unchunked study; {DAYS - step} launches")
 
     # (c) four ranks sharing the card, hybrid 2 x 2
+    four, wall = jobs["four"].result()
     stamp("mesh (c): four ranks over gloo, hybrid 2 x 2")
-    t0 = time.perf_counter()
-    four = spawn(_rank_four, 4, "gloo")
-    log(f"[mesh] (c) spawn of 4 ranks: {time.perf_counter() - t0:.1f} s")
+    log(f"[mesh] (c) spawn of 4 ranks: {wall:.1f} s")
     for rank, res in enumerate(four):
         r, launches = res["hybrid"]
         launched(launches, "interactions_compact", days, f"hybrid 2x2 rank {rank}")
@@ -2488,9 +2941,11 @@ def main() -> int:
         return interactions_only(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--flash-only":
         return flash_only(sys.argv[2])
+    if sys.argv[1:] == ["--families-only"]:
+        return families_only()
     if len(sys.argv) != 1:
-        print("usage: chip_smoke.py [--interactions-only SRC_DIR | --flash-only SRC_DIR]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--interactions-only SRC_DIR | --flash-only SRC_DIR | "
+              "--families-only]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
@@ -2623,6 +3078,9 @@ def main() -> int:
     stamp("ensembles")
     main_launches, studies, cores, tti_hist = ensemble_phase(pop, covid, epi, wrappers, card)
 
+    # ---- phase 4g's spawns start here and run beside phases 4e and 4f ------
+    mesh_jobs = start_mesh_spawns(pop)
+
     # ---- phase 4e: chunked runs and recovery ------------------------------
     stamp("chunked runs")
     chunked_phase(pop, wrappers, studies, card)
@@ -2637,7 +3095,7 @@ def main() -> int:
              ("tti", "pallas-compact"): tti["pallas-compact"][:2],
              ("tti", "pallas"): tti["pallas"][:2]}
     mesh_launches, mesh_served, shrunk = mesh_phase(pop, wrappers, local, studies, tti_hist,
-                                                    card)
+                                                    mesh_jobs, card)
 
     # ---- phase 4h: elastic shrink, the static-network oracle, detlint -------
     stamp("elastic shrink")
@@ -2686,6 +3144,10 @@ def main() -> int:
     stamp("serving")
     flash_launches = serve_phase(flash_kernel, card)
 
+    # ---- phase 7b: the other families ------------------------------------------
+    stamp("families")
+    families = families_phase(flash_kernel, card)
+
     stamp("end")
     log(card)
     line = []
@@ -2717,6 +3179,7 @@ def main() -> int:
         "source": os.path.relpath(flash_kernel.SOURCE, ROOT),
         "replaces": FLASH_REPLACES,
         "launches": flash_launches,
+        "family_launches": {a: r["launches"] for a, r in families.items()},
         **flash_rec,
     })
     log(json.dumps({"kernels": line}))

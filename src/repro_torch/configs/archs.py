@@ -2,9 +2,8 @@
 (``repro/configs/archs.py``, field for field), plus ``reduced_config`` for
 CPU tests.
 
-Each entry cites its source. The port serves the ``dense`` family
-(``models/transformer.py``); the other families are declared here so that
-the registry equals the reference's, and their models wait for later work.
+Each entry cites its source. The port serves every family
+(``models/model.py``); training waits (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations

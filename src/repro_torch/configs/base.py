@@ -80,6 +80,11 @@ class ModelConfig:
 
         return model_lib.param_count(self)
 
+    def active_param_count(self) -> int:
+        from repro_torch.models import model as model_lib
+
+        return model_lib.param_count(self, active_only=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

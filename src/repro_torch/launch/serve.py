@@ -11,13 +11,21 @@ overrides a ``ModelConfig`` field (the reference's ``launch/dryrun.py``
 idiom), e.g. ``attn_impl=flash`` for the flash-attention kernel in prefill.
 
 :func:`serve` is the session: it times one prefill, then (as the reference
-does) discards the prefill's cache, allocates a fresh bf16 cache for
+does) discards the prefill's cache, allocates a fresh cache for
 ``prompt_len + gen`` positions, replays the prompt through decode steps one
 position at a time and decodes ``gen`` tokens greedily. The replay feeds
 prompt token ``t`` at position ``t`` for every ``t < prompt_len``, so its
 logits at ``prompt_len - 1`` are the prefill's last-position logits up to
 rounding. (The reference's loop feeds token ``prompt_len - 2`` a second time
-at position ``prompt_len - 1``; see ROADMAP queue 3.)
+at position ``prompt_len - 1``; see ROADMAP queue 3, "Faults in the
+reference", item 1.)
+
+Every family the reference's driver takes is served: dense, moe, ssm,
+hybrid, and vlm with zero patch embeddings before the prompt (the
+reference's stub). The vlm replay is text only, as the reference's: decode
+never sees the patches, so its replay logits are those of a text-only
+prefill, not of the session's prefill (queue 3, item 3). Audio is refused
+(``SystemExit`` in :func:`main`), as the reference's driver refuses it.
 """
 
 from __future__ import annotations
@@ -36,12 +44,16 @@ from repro_torch.engine.core import resolve_device
 from repro_torch.launch import steps
 from repro_torch.models import model as M
 
+#: The reference driver's refusal of the audio family (``repro/launch/serve.py``).
+AUDIO_REFUSED = "use whisper decode via tests; serve driver targets LMs"
+
 
 @dataclasses.dataclass
 class ServeResult:
     tokens: np.ndarray  # (B, gen) int32, the greedy generation
     prefill_logits: torch.Tensor  # (B, 1, V), the prefill's last position
-    replay_logits: torch.Tensor | None  # (B, 1, V) at prompt_len - 1 (None if gen == 0)
+    # (B, 1, V) at prompt_len - 1 (None if gen == 0); for vlm, text only
+    replay_logits: torch.Tensor | None
     prefill_s: float
     decode_s: float  # the replay and the generation: prompt_len + gen - 1 steps
     decode_steps: int
@@ -56,18 +68,24 @@ def serve(cfg, params, prompts, gen: int, *, device="cuda") -> ServeResult:
     """Serve ``prompts`` ((B, prompt_len) integer tokens) with ``params``:
     one prefill, then the replay and ``gen`` greedy tokens. ``params`` are
     cast to the compute dtype once for the session."""
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: {AUDIO_REFUSED}")
     device = resolve_device(device)
     prompts = torch.as_tensor(prompts, device=device).long()
     B, P = prompts.shape
     if P < 1 or gen < 0:
         raise ValueError(f"need prompt_len >= 1 and gen >= 0, got {P} and {gen}")
     total = P + gen
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros((B, cfg.num_patches, cfg.d_model),
+                                            dtype=torch.float32, device=device)
     with torch.no_grad():
         p = M.prepare(cfg, params)
         prefill = steps.make_prefill_step(cfg)
         _sync(device)
         t0 = time.perf_counter()
-        prefill_logits, _ = prefill(p, {"tokens": prompts})
+        prefill_logits, _ = prefill(p, batch)
         _sync(device)
         t_prefill = time.perf_counter() - t0
 
@@ -144,6 +162,8 @@ def main(argv=None):
     if args.preset == "smoke":
         cfg = dataclasses.replace(reduced_config(cfg), compute_dtype="float32")
     cfg = dataclasses.replace(cfg, **parse_overrides(args.set))
+    if cfg.family == "audio":
+        raise SystemExit(AUDIO_REFUSED)
     device = resolve_device(args.device)
     # detlint: ignore[DET001] — the random weights' seeded generator
     gen = torch.Generator(device=device).manual_seed(args.seed)

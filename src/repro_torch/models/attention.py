@@ -40,9 +40,9 @@ def qkv_project(x, p, cfg, rot):
     H, M, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     G = H // M
     B, S, D = x.shape
-    q = (x @ p["wq"].reshape(D, H * Dh)).reshape(B, S, H, Dh)
-    k = (x @ p["wk"].reshape(D, M * Dh)).reshape(B, S, M, Dh)
-    v = (x @ p["wv"].reshape(D, M * Dh)).reshape(B, S, M, Dh)
+    q = layers.matmul(x, p["wq"].reshape(D, H * Dh)).reshape(B, S, H, Dh)
+    k = layers.matmul(x, p["wk"].reshape(D, M * Dh)).reshape(B, S, M, Dh)
+    v = layers.matmul(x, p["wv"].reshape(D, M * Dh)).reshape(B, S, M, Dh)
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -67,6 +67,12 @@ def attend(q, k, v, mask, cfg):
     out = torch.einsum("bmgst,btmk->bsmgk", probs, v)
     B, Sq = out.shape[0], out.shape[1]
     return out.reshape(B, Sq, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def out_project(out, p):
+    """(B, S, H, Dh) attention output through ``wo`` (H, Dh, D)."""
+    B, S, H, Dh = out.shape
+    return layers.matmul(out.reshape(B, S, H * Dh), p["wo"].reshape(H * Dh, -1))
 
 
 def causal_window_mask(sq: int, sk_offset: int, sk: int, window: Optional[int], device):
@@ -137,8 +143,7 @@ def self_attention(x, p, cfg, rot, *, window=None, causal=True):
         out = attend(q, k, v, mask, cfg)
     else:
         raise ValueError(f"unknown attn_impl '{cfg.attn_impl}'")
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, (k, v)
+    return out_project(out, p), (k, v)
 
 
 def init_cache_entry(cfg, batch: int, alloc: int, *, device, dtype=torch.bfloat16):
@@ -175,6 +180,4 @@ def decode_attention(x, p, cache, pos: int, cfg, tables):
     cache["v"][:, :, slot] = v_new[:, 0].to(cache["v"].dtype)
     kk = cache["k"].permute(0, 2, 1, 3).to(q.dtype)  # (B, T, M, Dh)
     vv = cache["v"].permute(0, 2, 1, 3).to(q.dtype)
-    out = attend(q, kk, vv, mask, cfg)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, cache
+    return out_project(attend(q, kk, vv, mask, cfg), p), cache

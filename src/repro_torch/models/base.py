@@ -70,6 +70,10 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tens
     return x.mul_(scale)
 
 
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def init_params(spec_tree, generator: torch.Generator, device):
     """Concrete parameters for ``spec_tree``, drawn leaf by leaf in
     sorted-key order from ``generator`` (which must live on ``device``)."""

@@ -1,12 +1,26 @@
-"""Common layers: RMS norm, RoPE, the SwiGLU MLP, embeddings. Plain
-functions on tensors, with the reference's (``repro/models/layers.py``)
+"""Common layers: norms, RoPE, MLPs, embeddings, sinusoidal positions.
+Plain functions on tensors, with the reference's (``repro/models/layers.py``)
 precision: norms and rotary embeddings compute in float32 and cast back;
-the products run in the input's dtype."""
+the products run in the input's dtype.
+
+``jnp.einsum`` promotes mixed operands (bfloat16 against float32 gives
+float32); ``torch.matmul`` refuses them. :func:`matmul` promotes as the
+reference does, so a decode step whose recurrent state is float32 (the
+hybrid family's) follows the reference's dtypes.
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def matmul(a, b):
+    """``a @ b`` in the promoted dtype of the two operands."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -15,6 +29,17 @@ def rms_norm(x, weight, eps: float = 1e-6):
     var = (x * x).mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * weight).to(dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm in float32 with the population variance (``jnp.var``),
+    cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * weight + bias).to(dtype)
 
 
 def rope_angles(positions, d_head: int, theta: float, ndim: int):
@@ -46,8 +71,15 @@ def rope(x, positions, theta: float = 10000.0):
 
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP. x: (B, S, D); w_gate/w_up: (D, F); w_down: (F, D)."""
-    h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    h = F.silu(matmul(x, w_gate)) * matmul(x, w_up)
+    return matmul(h, w_down)
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """GELU MLP with biases; the tanh approximation, ``jax.nn.gelu``'s
+    default."""
+    h = F.gelu(x @ w_in + b_in, approximate="tanh")
+    return h @ w_out + b_out
 
 
 def embed(tokens, table):
@@ -56,4 +88,15 @@ def embed(tokens, table):
 
 def unembed(x, table):
     """x: (B, S, D); table: (V, D) -> logits (B, S, V)."""
-    return x @ table.t()
+    return matmul(x, table.t())
+
+
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """(length, dim) float32: sin at even, cos at odd columns."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    rate = -torch.log(torch.tensor(10000.0, dtype=torch.float32, device=device)) / dim
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device) * rate)
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe

@@ -1,16 +1,17 @@
-"""Every top-level name of the reference's epidemic side has a counterpart in
-the port.
+"""Every top-level name of the reference's epidemic side and of its models
+has a counterpart in the port.
 
 For each module of ``repro`` under ``core/``, ``engine/``, ``serve/``,
-``api/``, ``runtime/``, ``checkpoint/`` and ``configs/``, the module of the
-same path in ``repro_torch`` must define every public top-level name the
-reference's defines: functions, classes and assigned constants, and in a
-package's ``__init__.py`` also the names it re-exports with ``from ...
-import``. Both sides are read with ``ast``: nothing is imported, so no JAX.
+``api/``, ``runtime/``, ``checkpoint/``, ``configs/`` and ``models/``, the
+module of the same path in ``repro_torch`` must define every public
+top-level name the reference's defines: functions, classes and assigned
+constants, and in a package's ``__init__.py`` also the names it re-exports
+with ``from ... import``. Both sides are read with ``ast``: nothing is
+imported, so no JAX.
 
 The only names allowed to be missing are listed below, each with the
-ROADMAP item that still queues it (the LM tooling), and ``core/compat.py``,
-a JAX ``shard_map`` shim with nothing to port.
+ROADMAP item that still queues it (LM training, sharding and tooling), and
+``core/compat.py``, a JAX ``shard_map`` shim with nothing to port.
 """
 
 import ast
@@ -20,16 +21,30 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF, PORT = os.path.join(ROOT, "src", "repro"), os.path.join(ROOT, "src", "repro_torch")
-PACKAGES = ("core", "engine", "serve", "api", "runtime", "checkpoint", "configs")
+PACKAGES = ("core", "engine", "serve", "api", "runtime", "checkpoint", "configs", "models")
 
+TRAINING = "ROADMAP queue 1 item 7 (LM training)"
+SHARDING = "ROADMAP queue 1 item 8 (LM sharding)"
+TOOLING = "ROADMAP queue 1 item 9 (LM tooling)"
 #: Modules with no counterpart, and why.
-MISSING_MODULES = {"core/compat.py": "a JAX shard_map shim (ROADMAP queue 1 item 9's note)"}
+MISSING_MODULES = {"core/compat.py": "a JAX shard_map shim (ROADMAP queue 1 item 9's note)",
+                   "models/sharding.py": SHARDING, "models/unroll.py": SHARDING}
 #: Names still queued in ROADMAP queue 1, by module.
 QUEUED = {
-    "configs/__init__.py": {n: "ROADMAP queue 1 item 9 (LM tooling)" for n in (
+    "configs/__init__.py": {n: TOOLING for n in (
         "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K", "get_shape", "list_archs",
         "supports_shape")},
-    "configs/base.py": {"supports_shape": "ROADMAP queue 1 item 9 (LM tooling)"},
+    "configs/base.py": {"supports_shape": TOOLING},
+    "models/attention.py": {"cache_axes": SHARDING, "flash_sharded": SHARDING,
+                            "cache_entry_struct": TOOLING},
+    "models/base.py": {"param_partition_specs": SHARDING, "abstract_params": TOOLING},
+    "models/encdec.py": {"cache_axes_tree": SHARDING},
+    "models/layers.py": {"cross_entropy_loss": TRAINING},
+    "models/model.py": {"forward_train": TRAINING, "param_partition_specs": SHARDING,
+                        "cache_partition_specs": SHARDING, "batch_partition_specs": SHARDING,
+                        "cache_axes": SHARDING, "abstract_params": TOOLING,
+                        "input_specs": TOOLING},
+    "models/transformer.py": {"cache_axes_tree": SHARDING},
 }
 
 
@@ -75,6 +90,9 @@ def test_port_has_every_reference_name(module):
 
 def test_the_allow_list_names_roadmap_items():
     roadmap = open(os.path.join(ROOT, "ROADMAP.md")).read()
+    for module, why in MISSING_MODULES.items():
+        assert "ROADMAP queue 1 item" in why, module
+        assert os.path.basename(module) in roadmap, f"ROADMAP does not queue {module}"
     for names in QUEUED.values():
         for name, why in names.items():
             assert name in roadmap, f"{name} is allowed missing but ROADMAP does not queue it"

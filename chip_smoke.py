@@ -5,12 +5,14 @@
     python3 chip_smoke.py --interactions-only SRC_DIR
     python3 chip_smoke.py --flash-only SRC_DIR
     python3 chip_smoke.py --families-only
+    python3 chip_smoke.py --train-only
 
 The second form runs phases 1 and 3 alone on the interaction kernels of the
 checkout whose src/ directory is given (an earlier commit's, unpacked with
 git archive, to time its kernels beside this one's in one call); the third
 runs phase 6 alone on that checkout's flash-attention kernels, with this
-script's cases, inputs, timers and bounds; the fourth runs phase 7b alone.
+script's cases, inputs, timers and bounds; the fourth runs phase 7b alone;
+the fifth phase 8 alone (it builds no kernel: training launches none).
 
 Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
@@ -171,13 +173,37 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      recurrentgemma prefill at S = 2,560 (past its 2,048 window) against
      naive; whisper-base through models/model.py (1,500 frames, a 64-token
      prompt, 6 flash launches, then 16 decode steps); prefill ms, decode ms
-     per step, tokens/s and peak memory per family.
+     per step, tokens/s and peak memory per family;
+  8. LM training (TRAIN_* below), every kernel's launch count set to 0 at
+     its start and read at its end: 0 (training attends through the
+     chunked online softmax, as the reference does without a mesh; the
+     flash kernel is forward-only) — (a) all ten archs at reduced_config in
+     float32, one step on the card against the same step on the CPU from
+     the same parameters and batch: loss, every gradient leaf and an AdamW
+     update from the same gradients, each within its stated tolerance;
+     (b) smollm-360m at full width and depth through launch/train.py's
+     train(), the "full" preset (bf16 compute, float32 parameters and
+     moments), batch 8 x 256, 30 steps checkpointed every 10 into a
+     temporary directory under build/ (removed) with a failure injected at
+     step 15: restarts 1, parameters, moments and every logged loss bitwise
+     an uninterrupted 30-step run's; the first batch's loss lower after
+     training; median ms per step, tokens/s, peak memory, a profiled step
+     (device busy, idle share, ops); 3 steps under attn_impl=flash: 0 flash
+     launches, losses bitwise attn_impl=chunked's; (c) mixtral-8x7b (2 of
+     32 layers), moonshot-v1-16b-a3b (4 of 48), llava-next-mistral-7b (4 of
+     32, 576 patches + 128 tokens), recurrentgemma-9b (one cycle),
+     mamba2-130m and whisper-base (whole), bf16, batch 4, 5 steps each,
+     twice: finite losses, a finite non-zero gradient norm, the rerun
+     bitwise (losses and a word-sum fingerprint of parameters and moments);
+     ms per step, peak memory, the MoE's dropped_fraction.
 
 The line before the last is the kernels' JSON record (``launches``: phase
 4d's; flash's ``launches`` phase 7's, ``family_launches`` phase 7b's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
 phase 4g (a)-(d)'s, ``mesh_served_launches``: phase 4g (e)'s mixes and
 ``shrink_launches``: phase 4h (a)-(b)'s, each summed over its ranks;
-``eager_launches``: phase 4i's run_eager); the last line is
+``eager_launches``: phase 4i's run_eager; ``train_launches``: phase 8's,
+and for flash ``train_flash_launches``, its attn_impl=flash run's); the
+last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
 package ``repro``.
 """
@@ -1243,6 +1269,337 @@ def families_only() -> int:
     stamp("end")
     log(card)
     log(json.dumps({"families": rec}))
+    return 0
+
+
+# Phase 8: LM training. (a) every arch at reduced width in float32, one step
+# on the card against the same step on the CPU from the same parameters and
+# batch (vlm: 8 patches + 24 tokens, as tests/test_models.py's make_batch).
+# The card's float32 matmuls are full float32 (TF32 off, PyTorch's default),
+# so the two differ by summation order only: the loss within 1e-5 relative;
+# each gradient leaf within 1e-4 of its largest |g| plus 1e-8 (the key
+# biases' gradients are zero in exact arithmetic, softmax being invariant
+# to a shift of a row, and read as ~1e-10 of rounding on either device);
+# one AdamW update on the card from the CPU's gradients within 1e-6 of each
+# leaf's largest |x| (the same elementwise arithmetic, a few correctly
+# rounded operations apart).
+TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SEQ = 2, 32
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_OPT_RTOL = 1e-5, (1e-4, 1e-8), 1e-6
+# (b) smollm-360m (launch/train.py's default arch) at full width and depth,
+# the "full" preset (bf16 compute, float32 parameters and moments), through
+# launch/train.py's train(): 30 steps checkpointed every 10 with a failure
+# injected at step 15, against the same 30 steps uninterrupted, bitwise;
+# then 3 steps under attn_impl=flash against 3 under chunked. At lr 3e-4:
+# at the driver's default 3e-3 (20 warm-up steps) the loss climbs at this
+# width, from 10.99 to ~11.3, in bf16 and in float32 alike, and the port
+# follows the reference step for step there (2 of 32 layers at full width on
+# the CPU). The token stream holds nothing that 30 steps of 2,048 tokens can
+# generalise from (a new segment of the successor permutation in every
+# row), so a step's loss on its own fresh batch moves by noise (~0.02); the
+# check that the optimiser descends is the first batch's loss, evaluated
+# again with the trained parameters, against its logged first_loss.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "smollm-360m", 8, 256, 30, 3e-4
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_FLASH_STEPS = 10, 15, 3
+TRAIN_HELD_OUT = 1000  # the pipeline's step whose batch no run trains on
+# (c) the other families at their published widths, bf16, batch 4, 5 steps,
+# each twice (bitwise); (arch, layers run (None: all), seq). Depth is cut to
+# fit one card's 80 GB with float32 parameters, gradients and moments
+# (16 bytes a parameter): mixtral 2 of 32 layers (3.2 B parameters, ~51 GB),
+# moonshot 4 of 48 (3.0 B, ~47 GB), llava 4 of 32 (its 576 patches + 128
+# tokens), recurrentgemma one (rec, rec, attn) cycle.
+TRAIN_FAMILIES = (
+    ("mixtral-8x7b", 2, 256),
+    ("moonshot-v1-16b-a3b", 4, 256),
+    ("llava-next-mistral-7b", 4, 704),
+    ("recurrentgemma-9b", 3, 256),
+    ("mamba2-130m", None, 256),
+    ("whisper-base", None, 256),
+)
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_STEPS = 4, 5
+
+
+def _tree_to(tree, device):
+    """A copy of a dict tree of tensors on ``device`` (a copy even where the
+    device is the tensor's own: the optimizer updates in place)."""
+    from repro_torch.models.base import tree_map
+
+    return tree_map(lambda a: a.to(device, copy=True), tree)
+
+
+def _leaf_gap(got, want) -> float:
+    """max |got - want| over max |want| (0 where both are zero)."""
+    want = want.float().cpu()
+    d = (got.float().cpu() - want).abs().max().item()
+    m = want.abs().max().item()
+    return d / m if m else d
+
+
+def reduced_train_batch(cfg, seed: int) -> dict:
+    """tests/test_models.py's make_batch, seeded: (2, 32) tokens; vlm 8
+    patch embeddings + 24 tokens, audio the reduced encoder's frames."""
+    # detlint: ignore[DET001] — seeded test inputs, not simulation state
+    gen = torch.Generator().manual_seed(seed)
+    B, S = TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SEQ
+    # detlint: ignore[DET001] — the same seeded inputs
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    # detlint: ignore[DET001] — the same seeded inputs
+    normal = lambda n: torch.randn((B, n, cfg.d_model), generator=gen,
+                                   dtype=torch.float32) * 0.1
+    if cfg.family == "audio":
+        return {"tokens": toks, "frames": normal(cfg.enc_frames)}
+    if cfg.family == "vlm":
+        return {"tokens": toks[:, : S - cfg.num_patches], "patch_embeds": normal(cfg.num_patches)}
+    return {"tokens": toks}
+
+
+def train_card_vs_cpu(card: str) -> None:
+    """Phase 8 (a)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+
+    opt_cfg = AdamWConfig(lr=3e-3, schedule=cosine_schedule(20, 100))
+    for i, arch in enumerate(sorted(ARCHS)):
+        cfg = dataclasses.replace(reduced_config(ARCHS[arch]), compute_dtype="float32")
+        # detlint: ignore[DET001] — seeded random weights for the comparison
+        params = M.init_params(cfg, torch.Generator().manual_seed(i), "cpu",
+                               max_target_positions=64)
+        batch = reduced_train_batch(cfg, i)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p, b = _tree_to(params, dev), _tree_to(batch, dev)
+            loss, _, grads = loss_and_grads(cfg, p, b)
+            _, _, m = make_train_step(cfg, opt_cfg)(p, adamw_init(p), b)
+            out[dev] = (loss.item(), m["loss"].item(), grads)
+        (l_cpu, s_cpu, g_cpu), (l_gpu, s_gpu, g_gpu) = out["cpu"], out["cuda"]
+        loss_gap = max(abs(l_gpu - l_cpu) / abs(l_cpu), abs(s_gpu - s_cpu) / abs(s_cpu))
+        if not loss_gap <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"[train:card-cpu] {arch}: loss {l_gpu} on the card, {l_cpu} "
+                                 f"on the CPU ({loss_gap:.3g} relative)")
+        worst = (0.0, "")
+        rel, floor = TRAIN_GRAD_TOL
+        for (path, gc), (_, gg) in zip(tree_leaves(g_cpu), tree_leaves(g_gpu)):
+            m = gc.abs().max().item()
+            d = (gg.cpu() - gc).abs().max().item()
+            if d > rel * m + floor:
+                raise AssertionError(f"[train:card-cpu] {arch}: gradient {'/'.join(path)} "
+                                     f"differs by {d:.3g} (largest |g| {m:.3g})")
+            worst = max(worst, (d / (m + floor / rel), "/".join(path)))
+        # one update from the CPU's gradients on each device
+        upd = {}
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev)
+            p, st, _ = adamw_update(opt_cfg, p, _tree_to(g_cpu, dev), adamw_init(p))
+            upd[dev] = {"params": p, "mu": st["mu"], "nu": st["nu"]}
+        opt_gap = max(_leaf_gap(b, a) for (_, a), (_, b)
+                      in zip(tree_leaves(upd["cpu"]), tree_leaves(upd["cuda"])))
+        if not opt_gap <= TRAIN_OPT_RTOL:
+            raise AssertionError(f"[train:card-cpu] {arch}: AdamW on the card {opt_gap:.3g} "
+                                 f"of a leaf's largest |x| from the CPU's")
+        log(f"[train:card-cpu] {arch} (reduced, float32, batch {TRAIN_REDUCED_BATCH} x "
+            f"{TRAIN_REDUCED_SEQ}): loss {l_gpu:.7f} on the card, {l_cpu:.7f} on the CPU "
+            f"({loss_gap:.3g} relative); worst gradient leaf {worst[1]} at {worst[0]:.3g} of "
+            f"its largest |g|; AdamW params/mu/nu within {opt_gap:.3g} of a leaf's largest |x|")
+
+
+def fingerprint(tree) -> list:
+    """A bit-level fingerprint of a dict tree of 32-bit tensors: per leaf,
+    the int64 sum of its words (taken 2^28 at a time), in leaf order."""
+    from repro_torch.models.base import tree_leaves
+
+    out = []
+    for _, a in tree_leaves(tree):
+        words = a.detach().reshape(-1).view(torch.int32)
+        out.append(sum(int(c.sum(dtype=torch.int64)) for c in words.split(1 << 28)))
+    return out
+
+
+def _same_trees(a, b) -> bool:
+    from repro_torch.models.base import tree_leaves
+
+    la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def train_smollm(fk, card: str) -> int:
+    """Phase 8 (b); returns the flash launches of the attn_impl=flash run."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+
+    base = ["--arch", TRAIN_ARCH, "--preset", "full", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--log-every", "1", "--lr", str(TRAIN_LR)]
+    full = base + ["--steps", str(TRAIN_STEPS)]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="train_ckpt-", dir=os.path.join(ROOT, "build"))
+    try:
+        args = T.parse_args(full + ["--ckpt-dir", ckdir, "--ckpt-every", str(TRAIN_CKPT_EVERY),
+                                    "--inject-failures", str(TRAIN_FAIL_AT)])
+        cfg = T.build_cfg(args)
+        pa, oa, ra = T.train(cfg, args)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    args_b = T.parse_args(full)
+    pb, ob, rb = T.train(cfg, args_b)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    label = f"[train:{TRAIN_ARCH}]"
+    if ra["restarts"] != 1 or rb["restarts"] != 0:
+        raise AssertionError(f"{label} restarts {ra['restarts']} / {rb['restarts']}, "
+                             "expected 1 / 0")
+    if not (_same_trees(pa, pb) and _same_trees(oa, ob)):
+        raise AssertionError(f"{label} the recovered run's parameters or moments differ from "
+                             "the uninterrupted run's")
+    losses = dict(rb["losses"])
+    if sorted(losses) != list(range(TRAIN_STEPS)) or dict(ra["losses"]) != losses:
+        raise AssertionError(f"{label} the runs logged other losses")
+    # the first batch and a held-out one, before (the seeded draw again) and
+    # after training
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, args_b.seed)
+    evals = [T.make_batch(cfg, pipe, s, "cuda") for s in (0, TRAIN_HELD_OUT)]
+    # detlint: ignore[DET001] — the driver's seeded draw, again
+    p0 = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(args_b.seed), "cuda",
+                       max_target_positions=TRAIN_SEQ + 8)
+    with torch.no_grad():
+        before = [float(M.forward_train(cfg, p0, b)[0]) for b in evals]
+        after = [float(M.forward_train(cfg, pb, b)[0]) for b in evals]
+    del p0
+    if not all(np.isfinite(v) for v in losses.values()) or before[0] != rb["first_loss"] \
+            or not after[0] < rb["first_loss"]:
+        raise AssertionError(f"{label} first batch's loss {rb['first_loss']} (again: "
+                             f"{before[0]}) -> {after[0]} after training: not finite and "
+                             "falling")
+    ms = 1e3 * float(np.median(rb["step_s"][1:]))
+    log(f"{label} full width ({cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}), compute {cfg.compute_dtype}, attn_impl {cfg.attn_impl}, remat "
+        f"{cfg.remat_policy}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, lr {TRAIN_LR}: logged loss "
+        f"{rb['first_loss']:.4f} -> {rb['final_loss']:.4f} over {TRAIN_STEPS} steps (mean of "
+        f"the first 10 {np.mean([losses[s] for s in range(10)]):.4f}, last 10 "
+        f"{np.mean([losses[s] for s in range(TRAIN_STEPS - 10, TRAIN_STEPS)]):.4f}); the first "
+        f"batch {before[0]:.4f} -> {after[0]:.4f}, a held-out batch {before[1]:.4f} -> "
+        f"{after[1]:.4f}; the run with a failure at step {TRAIN_FAIL_AT} (restarts "
+        f"{ra['restarts']}, checkpoints {ra['checkpoints']}) bitwise the uninterrupted one "
+        f"(parameters, moments, step; every logged loss)")
+    log(f"{label} median step {ms:.3f} ms after the first ({rb['step_s'][0] * 1e3:.1f} ms), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB "
+        f"(the recovered run's trees alive); wall {rb['wall_s']} s uninterrupted, "
+        f"{ra['wall_s']} s with the failure and checkpoints; {card}")
+    # one more step under the profiler, from the uninterrupted run's state
+    step = make_train_step(cfg, AdamWConfig(lr=args_b.lr,
+                                            schedule=cosine_schedule(20, TRAIN_STEPS)))
+    batch = T.make_batch(cfg, pipe, TRAIN_STEPS, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(pb, ob, batch)
+        torch.cuda.synchronize()
+    device_summary(prof, (time.perf_counter() - t0) * 1e3, 1, f"train:{TRAIN_ARCH}", card)
+    del pa, oa, pb, ob, prof
+    torch.cuda.empty_cache()
+    # attn_impl=flash trains through the chunked online softmax: no launch
+    short = base + ["--steps", str(TRAIN_FLASH_STEPS)]
+    runs = {}
+    for impl in ("flash", "chunked"):
+        fk.flash_attention_bhsd_cuda.launches = 0
+        a = T.parse_args(short + ["--set", f"attn_impl={impl}"])
+        _, _, r = T.train(T.build_cfg(a), a)
+        runs[impl] = (r["losses"], fk.flash_attention_bhsd_cuda.launches)
+    n = runs["flash"][1]
+    if n or runs["flash"][0] != runs["chunked"][0]:
+        raise AssertionError(f"{label} attn_impl=flash: {n} flash launches, losses "
+                             f"{runs['flash'][0]} against chunked {runs['chunked'][0]}")
+    log(f"{label} attn_impl=flash: {TRAIN_FLASH_STEPS} steps, {n} flash launches, losses "
+        f"bitwise attn_impl=chunked's ({[v for _, v in runs['flash'][0]]})")
+    torch.cuda.empty_cache()
+    return n
+
+
+def train_family(arch: str, layers, seq: int, card: str) -> dict:
+    """Phase 8 (c): one family, TRAIN_FAMILY_STEPS steps twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+
+    full = get_config(arch)
+    argv = ["--arch", arch, "--preset", "full", "--batch", str(TRAIN_FAMILY_BATCH), "--seq",
+            str(seq), "--steps", str(TRAIN_FAMILY_STEPS), "--log-every", "1"]
+    if layers:
+        argv += ["--set", f"num_layers={layers}"]
+    args = T.parse_args(argv)
+    cfg = T.build_cfg(args)
+    label = f"[train:{arch}]"
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, res = T.train(cfg, args)
+        runs.append((res, fingerprint({"params": params, "opt": opt}),
+                     torch.cuda.max_memory_allocated() / 2**30))
+        del params, opt
+        torch.cuda.empty_cache()
+    (res, fp, peak), (res2, fp2, _) = runs
+    losses = [v for _, v in res["losses"]]
+    gnorm = res["metrics"]["grad_norm"]
+    if len(losses) != TRAIN_FAMILY_STEPS or not all(np.isfinite(losses)) or \
+            not (np.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"{label} losses {losses}, last gradient norm {gnorm}")
+    if res2["losses"] != res["losses"] or fp2 != fp:
+        raise AssertionError(f"{label} a rerun of the {TRAIN_FAMILY_STEPS} steps differs")
+    ms = 1e3 * float(np.median(res["step_s"][1:]))
+    cut = f"{cfg.num_layers} of {full.num_layers} layers" if layers else \
+        f"all {cfg.num_layers} layers"
+    drop = res["metrics"].get("dropped_fraction")
+    log(f"{label} {cfg.family}, {cut}, d_model {cfg.d_model}, {M.param_count(cfg)} parameters, "
+        f"bf16, batch {TRAIN_FAMILY_BATCH} x {seq}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"gradient norm {gnorm:.4g}; median step {ms:.3f} ms after the first "
+        f"({res['step_s'][0] * 1e3:.1f} ms), peak memory {peak:.2f} GiB"
+        + (f", dropped_fraction {drop:.4f}" if drop is not None else "")
+        + f"; rerun bitwise; {card}")
+    return {"ms": ms, "peak_gib": peak, "dropped_fraction": drop}
+
+
+def train_phase(fk, card: str) -> dict:
+    """Phase 8: (a), (b), (c); returns the kernels' launches over it and the
+    flash run's, with the timings."""
+    from repro_torch.kernels.interactions import kernel as ik
+
+    counted = {"flash_attention": fk.flash_attention_bhsd_cuda,
+               **{k: getattr(ik, w) for k, (w, *_) in KERNELS.items()}}
+    for w in counted.values():
+        w.launches = 0
+    train_card_vs_cpu(card)
+    flash_n = train_smollm(fk, card)
+    fam = {arch: train_family(arch, layers, seq, card) for arch, layers, seq in TRAIN_FAMILIES}
+    launches = {k: w.launches for k, w in counted.items()}
+    if any(launches.values()):
+        raise AssertionError(f"[train] kernel launches in phase 8: {launches}")
+    return {"launches": launches, "flash_launches": flash_n, "families": fam}
+
+
+def train_only() -> int:
+    """Phases 1 and 8 alone (no kernel is built: phase 8 launches none)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    card = card_line()
+    log(f"[device] {card}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}")
+    stamp("phase 8")
+    rec = train_phase(fk, card)
+    stamp("end")
+    log(card)
+    log(json.dumps({"train": rec}))
     return 0
 
 
@@ -2943,9 +3300,11 @@ def main() -> int:
         return flash_only(sys.argv[2])
     if sys.argv[1:] == ["--families-only"]:
         return families_only()
+    if sys.argv[1:] == ["--train-only"]:
+        return train_only()
     if len(sys.argv) != 1:
         print("usage: chip_smoke.py [--interactions-only SRC_DIR | --flash-only SRC_DIR | "
-              "--families-only]", file=sys.stderr)
+              "--families-only | --train-only]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
@@ -3148,6 +3507,10 @@ def main() -> int:
     stamp("families")
     families = families_phase(flash_kernel, card)
 
+    # ---- phase 8: training -------------------------------------------------
+    stamp("phase 8")
+    train = train_phase(flash_kernel, card)
+
     stamp("end")
     log(card)
     line = []
@@ -3164,6 +3527,7 @@ def main() -> int:
             "mesh_served_launches": mesh_served[kname],
             "shrink_launches": shrink_launches[kname],
             "eager_launches": eager_launches[kname],
+            "train_launches": train["launches"][kname],
             "max_abs_err": max(rec["max_abs_err"],
                                *(r["max_abs_err"] for r in records[kname].values())),
             "ms": rec["ms"],
@@ -3180,6 +3544,8 @@ def main() -> int:
         "replaces": FLASH_REPLACES,
         "launches": flash_launches,
         "family_launches": {a: r["launches"] for a, r in families.items()},
+        "train_launches": train["launches"]["flash_attention"],
+        "train_flash_launches": train["flash_launches"],
         **flash_rec,
     })
     log(json.dumps({"kernels": line}))

@@ -8,9 +8,17 @@ not repeated), and returns (B, Sq, M*G, Dh) with head h = m*G + g.
 
 CUDA tensors launch the kernel (or raise); CPU tensors run its plain
 version. Nothing else: no fall back from one to the other.
+
+The kernel computes the forward only, as the reference's Pallas kernel
+does: where grad mode is on and an input requires grad, the call raises
+(on the card and on the CPU alike) rather than return an output that no
+gradient would flow through. Training attends through the chunked online
+softmax (``models/attention.py:self_attention``'s ``train``).
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.flash_attention import kernel
 
@@ -19,6 +27,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     """q: (B, Sq, M, G, Dh); k, v: (B, Sk, M, Dh) -> (B, Sq, M*G, Dh)."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention is forward-only: it has no backward, so it "
+                           "refuses inputs that require grad (train with attn_impl "
+                           "'chunked', or through forward_train, which does so for 'flash')")
     B, Sq, M, G, Dh = q.shape
     Sk = k.shape[1]
     qf = q.permute(0, 2, 3, 1, 4).reshape(B * M * G, Sq, Dh).contiguous()

@@ -125,14 +125,19 @@ def attend_chunked(q, k, v, cfg, *, causal=True, window=None, chunk=1024):
     return out.reshape(B, Sq, cfg.num_heads, cfg.resolved_head_dim)
 
 
-def self_attention(x, p, cfg, rot, *, window=None, causal=True):
-    """Full-sequence attention (prefill); ``rot`` holds the :func:`rotary`
-    tables of positions ``arange(S)``. Returns (out, (k, v))."""
+def self_attention(x, p, cfg, rot, *, window=None, causal=True, train=False):
+    """Full-sequence attention (train / prefill); ``rot`` holds the
+    :func:`rotary` tables of positions ``arange(S)``. Returns (out, (k, v)).
+
+    ``train`` marks a training forward: there ``attn_impl="flash"`` attends
+    through :func:`attend_chunked` with ``cfg.attn_chunk``, as the
+    reference's ``flash_sharded`` does without a mesh, since the kernel is
+    forward-only."""
     B, S, _ = x.shape
     q, k, v = qkv_project(x, p, cfg, rot)
-    if cfg.attn_impl == "flash":
+    if cfg.attn_impl == "flash" and not train:
         out = flash_attention(q, k, v, causal=causal, window=window)
-    elif cfg.attn_impl == "chunked":
+    elif cfg.attn_impl in ("flash", "chunked"):
         out = attend_chunked(q, k, v, cfg, causal=causal, window=window,
                              chunk=cfg.attn_chunk)
     elif cfg.attn_impl == "naive":

@@ -32,20 +32,28 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
 
 
-def _leaves(tree, prefix=()):
+def tree_leaves(tree, prefix=()):
     """(path, leaf) pairs of a nested dict in sorted-key order (the order
     in which ``jax.tree`` flattens a dict)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (k,))
+            yield from tree_leaves(tree[k], prefix + (k,))
     else:
         yield prefix, tree
 
 
-def _map(fn, tree):
+def tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_unflatten(like, flat: dict, prefix=()):
+    """A nested dict of ``like``'s structure holding ``flat[path]`` at each
+    leaf's path (the paths of :func:`tree_leaves`)."""
+    if isinstance(like, dict):
+        return {k: tree_unflatten(v, flat, prefix + (k,)) for k, v in like.items()}
+    return flat[prefix]
 
 
 def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tensor:
@@ -78,7 +86,7 @@ def init_params(spec_tree, generator: torch.Generator, device):
     """Concrete parameters for ``spec_tree``, drawn leaf by leaf in
     sorted-key order from ``generator`` (which must live on ``device``)."""
     out: dict = {}
-    for path, spec in _leaves(spec_tree):
+    for path, spec in tree_leaves(spec_tree):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -87,14 +95,16 @@ def init_params(spec_tree, generator: torch.Generator, device):
 
 
 def param_count(spec_tree) -> int:
-    return sum(int(np.prod(s.shape)) for _, s in _leaves(spec_tree))
+    return sum(int(np.prod(s.shape)) for _, s in tree_leaves(spec_tree))
 
 
 def params_from_numpy(tree, device):
     """The reference's parameter tree, as numpy arrays (e.g. ``jax.tree.map(
     np.asarray, params)``), as the port's: the same nested names and shapes,
-    each leaf a tensor of the same dtype on ``device``."""
-    return _map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+    each leaf a tensor of the same dtype on ``device``. Any dict tree of
+    arrays carries across so; the reference's AdamW state ``{"mu", "nu",
+    "step"}`` becomes the port's (float32 moments, a scalar int32 step)."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
 
 
 def cast_floats(tree, dtype: torch.dtype):
@@ -103,5 +113,5 @@ def cast_floats(tree, dtype: torch.dtype):
     session's per-layer dicts) are walked like dicts."""
     if isinstance(tree, list):
         return [cast_floats(t, dtype) for t in tree]
-    return _map(lambda a: cast_floats(a, dtype) if isinstance(a, list)
+    return tree_map(lambda a: cast_floats(a, dtype) if isinstance(a, list)
                 else a.to(dtype) if a.dtype == torch.float32 else a, tree)

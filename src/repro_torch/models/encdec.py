@@ -21,7 +21,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.base import ParamSpec
-from repro_torch.models.transformer import layer_list
+from repro_torch.models.transformer import _ckpt, layer_list
 
 
 def _attn_specs(cfg, n, prefix=""):
@@ -84,12 +84,14 @@ def _project(x, w, b):
     return (x @ w.reshape(D, -1)).reshape(B, S, *w.shape[1:]) + b
 
 
-def _mha(x, kv_x, layer, cfg, prefix="", causal=False, mask=None):
+def _mha(x, kv_x, layer, cfg, prefix="", causal=False, mask=None, train=False):
     """Generic (self or cross) full attention with biases, no RoPE. Three
     routes, as the reference's: the flash kernel for causal self-attention
-    (Sq == Sk) under ``attn_impl="flash"``; the chunked online softmax
-    under ``"chunked"`` when the keys divide into chunks; else ``attend``
-    with ``mask`` (by default causal or full)."""
+    (Sq == Sk) under ``attn_impl="flash"`` (in a training forward,
+    ``train``, the chunked online softmax in its place, as the reference
+    does without a mesh); the chunked online softmax under ``"chunked"``
+    when the keys divide into chunks; else ``attend`` with ``mask`` (by
+    default causal or full)."""
     H, M, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B, Sq, _ = x.shape
     Sk = kv_x.shape[1]
@@ -97,9 +99,11 @@ def _mha(x, kv_x, layer, cfg, prefix="", causal=False, mask=None):
     k = _project(kv_x, layer[prefix + "wk"], layer[prefix + "bk"])
     v = _project(kv_x, layer[prefix + "wv"], layer[prefix + "bv"])
     q = q.reshape(B, Sq, M, H // M, Dh)
-    if cfg.attn_impl == "flash" and mask is None and causal and Sq == Sk:
+    flash = cfg.attn_impl == "flash" and mask is None and causal and Sq == Sk
+    if flash and not train:
         out = flash_attention(q, k, v, causal=True)
-    elif cfg.attn_impl == "chunked" and mask is None and Sk % min(cfg.attn_chunk, Sk) == 0:
+    elif flash or (cfg.attn_impl == "chunked" and mask is None
+                   and Sk % min(cfg.attn_chunk, Sk) == 0):
         out = attn_lib.attend_chunked(q, k, v, cfg, causal=causal, window=None,
                                       chunk=cfg.attn_chunk)
     else:
@@ -112,29 +116,42 @@ def _mha(x, kv_x, layer, cfg, prefix="", causal=False, mask=None):
     return attn_lib.out_project(out, {"wo": layer[prefix + "wo"]}) + layer[prefix + "bo"]
 
 
-def encode(cfg, params, frames):
-    """frames: (B, F, D) precomputed embeddings (frontend stub)."""
+def _enc_layer(x, layer, cfg, train):
+    hn = L.layer_norm(x, layer["ln1_w"], layer["ln1_b"], cfg.norm_eps)
+    x = x + _mha(hn, hn, layer, cfg, train=train)
+    hn = L.layer_norm(x, layer["ln2_w"], layer["ln2_b"], cfg.norm_eps)
+    return x + L.gelu_mlp(hn, layer["w_in"], layer["b_in"], layer["w_out"], layer["b_out"])
+
+
+def _dec_layer(x, layer, enc_out, cfg, train):
+    hn = L.layer_norm(x, layer["ln1_w"], layer["ln1_b"], cfg.norm_eps)
+    x = x + _mha(hn, hn, layer, cfg, causal=True, train=train)
+    hn = L.layer_norm(x, layer["ln2_w"], layer["ln2_b"], cfg.norm_eps)
+    x = x + _mha(hn, enc_out, layer, cfg, prefix="x_", train=train)
+    hn = L.layer_norm(x, layer["ln3_w"], layer["ln3_b"], cfg.norm_eps)
+    return x + L.gelu_mlp(hn, layer["w_in"], layer["b_in"], layer["w_out"], layer["b_out"])
+
+
+def encode(cfg, params, frames, *, train=False):
+    """frames: (B, F, D) precomputed embeddings (frontend stub). Each layer
+    runs under remat (``transformer._ckpt``) where grad mode is on;
+    ``train`` marks a training forward (see :func:`_mha`)."""
     pe = L.sinusoidal_positions(frames.shape[1], cfg.d_model, device=frames.device)
     x = frames + pe[None].to(frames.dtype)
+    body = _ckpt(lambda h, layer: _enc_layer(h, layer, cfg, train), cfg)
     for layer in layer_list(params["enc_layers"]):
-        hn = L.layer_norm(x, layer["ln1_w"], layer["ln1_b"], cfg.norm_eps)
-        x = x + _mha(hn, hn, layer, cfg)
-        hn = L.layer_norm(x, layer["ln2_w"], layer["ln2_b"], cfg.norm_eps)
-        x = x + L.gelu_mlp(hn, layer["w_in"], layer["b_in"], layer["w_out"], layer["b_out"])
+        x = body(x, layer)
     return L.layer_norm(x, params["enc_norm_w"], params["enc_norm_b"], cfg.norm_eps)
 
 
-def decode_train(cfg, params, tokens, enc_out):
-    """Teacher-forced decoder. tokens: (B, S). Returns logits (B, S, V)."""
+def decode_train(cfg, params, tokens, enc_out, *, train=False):
+    """Teacher-forced decoder. tokens: (B, S). Returns logits (B, S, V).
+    Remat and ``train`` as in :func:`encode`."""
     S = tokens.shape[1]
     x = (params["embed"][tokens] + params["pos_dec"][None, :S]).to(enc_out.dtype)
+    body = _ckpt(lambda h, layer, enc: _dec_layer(h, layer, enc, cfg, train), cfg)
     for layer in layer_list(params["dec_layers"]):
-        hn = L.layer_norm(x, layer["ln1_w"], layer["ln1_b"], cfg.norm_eps)
-        x = x + _mha(hn, hn, layer, cfg, causal=True)
-        hn = L.layer_norm(x, layer["ln2_w"], layer["ln2_b"], cfg.norm_eps)
-        x = x + _mha(hn, enc_out, layer, cfg, prefix="x_")
-        hn = L.layer_norm(x, layer["ln3_w"], layer["ln3_b"], cfg.norm_eps)
-        x = x + L.gelu_mlp(hn, layer["w_in"], layer["b_in"], layer["w_out"], layer["b_out"])
+        x = body(x, layer, enc_out)
     x = L.layer_norm(x, params["dec_norm_w"], params["dec_norm_b"], cfg.norm_eps)
     return x @ params["embed"].to(x.dtype).t()
 

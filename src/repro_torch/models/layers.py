@@ -100,3 +100,18 @@ def sinusoidal_positions(length: int, dim: int, device=None):
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean cross entropy over valid positions; logits (B, S, V), labels
+    (B, S). The log-partition in float32, the gold logit by ``gather``
+    (one index per row, so its backward adds at most one value into each
+    element), and the masked mean with the count clamped at 1."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

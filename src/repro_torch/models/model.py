@@ -1,13 +1,14 @@
-"""Top-level model API: specs, parameters, prefill and cached decode (the
-reference's ``models/model.py``). Every function dispatches on
-``cfg.family``:
+"""Top-level model API: specs, parameters, the training loss, prefill and
+cached decode (the reference's ``models/model.py``). Every function
+dispatches on ``cfg.family``:
 
   dense | moe | vlm | hybrid | ssm -> models/transformer.py
   audio (enc-dec)                  -> models/encdec.py
 
 Parameters are a dict tree of tensors (float32, the reference's
-``param_dtype``). ``forward_prefill`` and ``decode_step`` run in
-``cfg.compute_dtype``: they cast float32 leaves to it, which costs nothing
+``param_dtype``). ``forward_train``, ``forward_prefill`` and ``decode_step``
+run in ``cfg.compute_dtype``: they cast float32 leaves to it (a
+differentiable cast: gradients reach the float32 leaves), which costs nothing
 when the caller passed parameters already cast with :func:`cast_params`
 (a serving session does so once, :func:`prepare`; the values are those of
 the reference's per-call ``_cast``).
@@ -65,6 +66,43 @@ def prepare(cfg: ModelConfig, params):
 
 def _unembed_table(cfg, p):
     return p["embed"] if cfg.tie_embeddings else p["unembed"]
+
+
+def forward_train(cfg: ModelConfig, params, batch) -> tuple:
+    """Returns (loss, metrics) of one batch: the next-token cross entropy,
+    plus the MoE's auxiliary losses for the moe family. batch["tokens"]:
+    (B, S) integer tokens; vlm also batch["patch_embeds"] (B, Np, D), put
+    before the tokens, the loss over the text span only; audio
+    batch["frames"] (B, F, D) and an optional batch["loss_mask"] over the
+    (B, S - 1) predicted positions. Attention takes its training route
+    (``attention.self_attention``'s ``train``)."""
+    compute = getattr(torch, cfg.compute_dtype)
+    p = cast_params(cfg, params)
+    tokens = batch["tokens"]
+
+    if cfg.family == "audio":
+        enc_out = encdec_lib.encode(cfg, p, batch["frames"].to(compute), train=True)
+        logits = encdec_lib.decode_train(cfg, p, tokens, enc_out, train=True)
+        loss = L.cross_entropy_loss(logits[:, :-1], tokens[:, 1:], batch.get("loss_mask"))
+        return loss, {"loss": loss}
+
+    x = L.embed(tokens, p["embed"]).to(compute)
+    npatch = 0
+    if cfg.family == "vlm":
+        patches = batch["patch_embeds"].to(compute)  # (B, Np, D)
+        x = torch.cat([patches, x], dim=1)
+        npatch = patches.shape[1]
+    h, _, aux = tf_lib.stack_forward(cfg, p, x, train=True)
+    h = L.rms_norm(h, p["final_norm"], cfg.norm_eps)
+    logits = L.unembed(h, _unembed_table(cfg, p))
+    # token t_j sits at position npatch + j: the loss over the text span only
+    loss = L.cross_entropy_loss(logits[:, npatch:-1], tokens[:, 1:])
+    metrics = {"loss": loss}
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
+        metrics.update({"load_balance": aux["load_balance"],
+                        "dropped_fraction": aux["dropped_fraction"]})
+    return loss, metrics
 
 
 def forward_prefill(cfg: ModelConfig, params, batch):

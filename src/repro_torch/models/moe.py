@@ -64,7 +64,9 @@ def moe_ffn(x, p, cfg):
     flat_e = gate_i.reshape(-1)  # (T*K,) token-major
     slot = torch.where(keep, pos_in_e, C)  # dropped -> the spare slot
 
-    x_rep = xt.repeat_interleave(K, dim=0)
+    # each token's row K times (token-major), as a broadcast: its backward
+    # sums the K copies in one reduction, with no atomic adds
+    x_rep = xt[:, None].expand(T, K, D).reshape(T * K, D)
     buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
     buf[flat_e, slot] = x_rep
     h = buf[:, :C]

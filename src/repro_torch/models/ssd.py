@@ -44,8 +44,11 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int, initial_state=None):
 
     xc = x.reshape(b, nc, chunk, H, P)
     dtc = dt.reshape(b, nc, chunk, H)
-    Bc = B.reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)  # (b,c,q,H,N)
-    Cc = C.reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    # each group's B and C for its rep heads (head h = g * rep + r), as a
+    # broadcast: the backward sums the copies in one reduction, no atomics
+    heads = lambda a: a.reshape(b, nc, chunk, G, 1, N).expand(
+        b, nc, chunk, G, rep, N).reshape(b, nc, chunk, H, N)
+    Bc, Cc = heads(B), heads(C)  # (b, c, q, H, N)
 
     dA = dtc * A  # (b, c, q, H)
     dAc = torch.cumsum(dA, dim=2)

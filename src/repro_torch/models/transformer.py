@@ -1,12 +1,14 @@
 """Decoder-only model assembly for the dense, moe, vlm, ssm and hybrid
-families: parameter specs, prefill forward and cached decode (the
+families: parameter specs, train/prefill forward and cached decode (the
 reference's ``models/transformer.py``).
 
 Layer parameters are stacked on a leading axis under the reference's names
 and shapes; the forward walks them with a Python loop (the reference's
 ``lax.scan``), through :func:`layer_list` views. The hybrid family
 (RecurrentGemma) walks whole (rec, rec, attn) cycles, then the rec
-remainder, and returns the reference's nested prefill cache.
+remainder, and returns the reference's nested prefill cache. Where grad
+mode is on, each layer (each hybrid cycle) runs under :func:`_ckpt`, the
+reference's remat, on the reference's boundaries.
 
 Decode writes attention keys and values into the cache in place; the
 recurrent states (``conv``, ``ssm``, ``lru``) are replaced by the step's new
@@ -16,8 +18,15 @@ them, as ``jnp.stack`` does).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -142,11 +151,15 @@ def model_specs(cfg) -> dict:
 
 def layer_list(layers) -> list:
     """Per-layer parameter dicts: views into the stacked tensors, or the
-    list itself when a session already unstacked them (``model.prepare``)."""
+    list itself when a session already unstacked them (``model.prepare``).
+    The views come from one ``unbind`` per stacked tensor, whose backward
+    stacks the layers' gradients once (indexing layer by layer would, in
+    the backward, zero-fill and add a whole stacked tensor per layer)."""
     if isinstance(layers, list):
         return layers
+    per_key = {k: a.unbind(0) for k, a in layers.items()}
     n = next(iter(layers.values())).shape[0]
-    return [{k: a[i] for k, a in layers.items()} for i in range(n)]
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
 def _stack(trees: list):
@@ -162,6 +175,35 @@ def _stack(trees: list):
     for t in trees[1:]:
         dt = torch.promote_types(dt, t.dtype)
     return torch.stack([t.to(dt) for t in trees])
+
+
+#: The products whose outputs the "dots" policy saves (``dots_saveable``).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _ckpt(fn, cfg):
+    """Remat policy knob (cfg.remat_policy): 'nothing' (save only the
+    inputs, recompute all in the backward), 'dots' (save the matmul outputs,
+    recompute the rest), 'none' (no remat). Only where grad mode is on:
+    without it ``fn`` runs as it is."""
+    if cfg.remat_policy == "none":
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_saveable)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # nothing in a layer draws random numbers: no RNG state to replay
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return remat
 
 
 # ---------------------------------------------------------------------------
@@ -181,11 +223,12 @@ def _swiglu(h, layer):
     return L.swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
 
 
-def attn_block(x, layer, cfg, rot, *, window):
+def attn_block(x, layer, cfg, rot, *, window, train=False):
     """Pre-norm attention then the FFN (MoE for the moe family). Returns
-    (x, (k, v), aux); aux is the MoE's, else empty."""
+    (x, (k, v), aux); aux is the MoE's, else empty. ``train``: see
+    ``attention.self_attention``."""
     h = L.rms_norm(x, layer["ln1"], cfg.norm_eps)
-    out, kv = attn_lib.self_attention(h, layer, cfg, rot, window=window)
+    out, kv = attn_lib.self_attention(h, layer, cfg, rot, window=window, train=train)
     x = x + out
     h = L.rms_norm(x, layer["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
@@ -234,7 +277,7 @@ def rec_block(x, layer, cfg, state=None):
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -242,28 +285,32 @@ def _zero_aux() -> dict:
     return {"load_balance": 0.0, "router_z": 0.0, "dropped_fraction": 0.0}
 
 
-def stack_forward(cfg, params, x, *, want_cache=False, cache_len=0):
+def stack_forward(cfg, params, x, *, want_cache=False, cache_len=0, train=False):
     """x: (B, S, D) embedded input. Returns (hidden (B,S,D), cache or None,
     aux). The cache is the reference's: k/v (n, B, M, T, Dh) for attention
     stacks, (conv tails, ssm states) for ssm, the nested cycles/remainder
-    tree for hybrid; aux the mean over layers of the MoE's."""
+    tree for hybrid; aux the mean over layers of the MoE's. ``train`` marks
+    a training forward (``attention.self_attention``)."""
     if cfg.family == "ssm":
+        body = _ckpt(lambda h, layer: ssd_block(h, layer, cfg), cfg)
         states = []
         for layer in layer_list(params["layers"]):
-            x, st = ssd_block(x, layer, cfg)
+            x, st = body(x, layer)
             states.append(st)
         return x, (_stack(states) if want_cache else None), _zero_aux()
 
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None, :]
     rot = attn_lib.rotary(cfg, positions)
     if cfg.family == "hybrid":
-        return _hybrid_forward(cfg, params, x, rot, want_cache, cache_len)
+        return _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train)
 
     # dense / moe / vlm
     window = cfg.attn_window
+    body = _ckpt(lambda h, layer: attn_block(h, layer, cfg, rot, window=window, train=train),
+                 cfg)
     caches, auxs = [], []
     for layer in layer_list(params["layers"]):
-        x, kv, aux = attn_block(x, layer, cfg, rot, window=window)
+        x, kv, aux = body(x, layer)
         if want_cache:
             caches.append(_kv_to_cache(kv, cache_len, window))
         auxs.append(aux)
@@ -287,28 +334,38 @@ def _kv_to_cache(kv, cache_len, window):
     return {"k": kk, "v": vv}
 
 
-def _hybrid_forward(cfg, params, x, rot, want_cache, cache_len):
+def _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train=False):
     """Whole (rec, rec, attn) cycles (cycle c uses attention layer c), then
-    the remainder as rec layers. The cache, if wanted, is the reference's
-    ``{"cycles": per pattern slot, stacked over cycles, "rem": per layer}``."""
+    the remainder as rec layers; remat (:func:`_ckpt`) wraps each whole
+    cycle, not the remainder, as the reference's scan body. The cache, if
+    wanted, is the reference's ``{"cycles": per pattern slot, stacked over
+    cycles, "rem": per layer}``."""
     types = hybrid_layer_types(cfg)
     pat = len(cfg.block_pattern)
     cycles = cfg.num_layers // pat
     rem = types[cycles * pat:]
     rec, attn = layer_list(params["rec_layers"]), layer_list(params["attn_layers"])
     window = cfg.local_window
-    cycle_states, ri = [], 0
-    for c in range(cycles):
-        states = []
+    n_rec = cfg.block_pattern.count("rec")
+
+    def cycle(h, rec_layers, attn_layer):
+        states, rj = [], 0
         for t in cfg.block_pattern:
             if t == "rec":
-                x, st = rec_block(x, rec[ri], cfg)
+                h, st = rec_block(h, rec_layers[rj], cfg)
                 states.append(st)
-                ri += 1
+                rj += 1
             else:
-                x, kv, _ = attn_block(x, attn[c], cfg, rot, window=window)
+                h, kv, _ = attn_block(h, attn_layer, cfg, rot, window=window, train=train)
                 states.append(_kv_to_cache(kv, cache_len, window) if want_cache else None)
-        cycle_states.append(tuple(states))
+        return h, tuple(states)
+
+    cycle = _ckpt(cycle, cfg)
+    cycle_states = []
+    for c in range(cycles):
+        x, states = cycle(x, rec[c * n_rec:(c + 1) * n_rec], attn[c])
+        cycle_states.append(states)
+    ri = cycles * n_rec
     rem_states = []
     for i in range(len(rem)):
         x, st = rec_block(x, rec[ri + i], cfg)

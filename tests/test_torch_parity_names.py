@@ -2,7 +2,8 @@
 has a counterpart in the port.
 
 For each module of ``repro`` under ``core/``, ``engine/``, ``serve/``,
-``api/``, ``runtime/``, ``checkpoint/``, ``configs/`` and ``models/``, the
+``api/``, ``runtime/``, ``checkpoint/``, ``configs/``, ``models/``,
+``optim/`` and ``launch/``, the
 module of the same path in ``repro_torch`` must define every public
 top-level name the reference's defines: functions, classes and assigned
 constants, and in a package's ``__init__.py`` also the names it re-exports
@@ -10,7 +11,7 @@ with ``from ... import``. Both sides are read with ``ast``: nothing is
 imported, so no JAX.
 
 The only names allowed to be missing are listed below, each with the
-ROADMAP item that still queues it (LM training, sharding and tooling), and
+ROADMAP item that still queues it (LM sharding and tooling), and
 ``core/compat.py``, a JAX ``shard_map`` shim with nothing to port.
 """
 
@@ -21,26 +22,30 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF, PORT = os.path.join(ROOT, "src", "repro"), os.path.join(ROOT, "src", "repro_torch")
-PACKAGES = ("core", "engine", "serve", "api", "runtime", "checkpoint", "configs", "models")
+PACKAGES = ("core", "engine", "serve", "api", "runtime", "checkpoint", "configs", "models",
+            "optim", "launch")
 
-TRAINING = "ROADMAP queue 1 item 7 (LM training)"
 SHARDING = "ROADMAP queue 1 item 8 (LM sharding)"
 TOOLING = "ROADMAP queue 1 item 9 (LM tooling)"
 #: Modules with no counterpart, and why.
 MISSING_MODULES = {"core/compat.py": "a JAX shard_map shim (ROADMAP queue 1 item 9's note)",
-                   "models/sharding.py": SHARDING, "models/unroll.py": SHARDING}
+                   "models/sharding.py": SHARDING, "models/unroll.py": SHARDING,
+                   "launch/dryrun.py": TOOLING}
 #: Names still queued in ROADMAP queue 1, by module.
 QUEUED = {
     "configs/__init__.py": {n: TOOLING for n in (
         "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K", "get_shape", "list_archs",
         "supports_shape")},
     "configs/base.py": {"supports_shape": TOOLING},
+    "launch/mesh.py": {"make_production_mesh": SHARDING, "mesh_num_devices": SHARDING},
+    "launch/steps.py": {"train_shardings": SHARDING, "decode_shardings": SHARDING,
+                        "prefill_shardings": SHARDING, "named": SHARDING,
+                        "abstract_opt_state": TOOLING},
     "models/attention.py": {"cache_axes": SHARDING, "flash_sharded": SHARDING,
                             "cache_entry_struct": TOOLING},
     "models/base.py": {"param_partition_specs": SHARDING, "abstract_params": TOOLING},
     "models/encdec.py": {"cache_axes_tree": SHARDING},
-    "models/layers.py": {"cross_entropy_loss": TRAINING},
-    "models/model.py": {"forward_train": TRAINING, "param_partition_specs": SHARDING,
+    "models/model.py": {"param_partition_specs": SHARDING,
                         "cache_partition_specs": SHARDING, "batch_partition_specs": SHARDING,
                         "cache_axes": SHARDING, "abstract_params": TOOLING,
                         "input_specs": TOOLING},

@@ -6,13 +6,15 @@
     python3 chip_smoke.py --flash-only SRC_DIR
     python3 chip_smoke.py --families-only
     python3 chip_smoke.py --train-only
+    python3 chip_smoke.py --shard-only
 
 The second form runs phases 1 and 3 alone on the interaction kernels of the
 checkout whose src/ directory is given (an earlier commit's, unpacked with
 git archive, to time its kernels beside this one's in one call); the third
 runs phase 6 alone on that checkout's flash-attention kernels, with this
 script's cases, inputs, timers and bounds; the fourth runs phase 7b alone;
-the fifth phase 8 alone (it builds no kernel: training launches none).
+the fifth phase 8 alone (it builds no kernel: training launches none); the
+sixth builds the flash source and runs phase 9 alone.
 
 Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
@@ -195,14 +197,36 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      mamba2-130m and whisper-base (whole), bf16, batch 4, 5 steps each,
      twice: finite losses, a finite non-zero gradient norm, the rerun
      bitwise (losses and a word-sum fingerprint of parameters and moments);
-     ms per step, peak memory, the MoE's dropped_fraction.
+     ms per step, peak memory, the MoE's dropped_fraction;
+  9. LM sharding (SHARD_* below) — one spawn of four ranks sharing cuda:0
+     over gloo (started beside phase 4g's spawns, read after phase 8; alone
+     under --shard-only), a (data 2, model 2) DeviceMesh, weights drawn on the card
+     leaf by leaf and placed by the shardings of launch/steps.py: (a)
+     qwen2-1.5b (28 layers) served: a float32 sharded prefill against the
+     unsharded port (the float32 kernel per data shard), a bf16 prefill
+     through make_prefill_step (28 flash launches per rank), again bitwise,
+     and 16 greedy decode steps through make_decode_step against an
+     unsharded session (logits within the 8% band, tokens compared); (b)
+     smollm-360m (32 layers) trained: a float32 step against unsharded
+     (loss, every gradient leaf, AdamW from the same gradients), then three
+     bf16 steps through make_train_step and the first again, bitwise, 0
+     flash launches;
+     (c) mixtral-8x7b (2 of 32 layers) with the shard_map MoE dispatch: a
+     float32 prefill against unsharded where nothing drops, layer 0's MoE
+     against moe_ffn on each data shard, a bf16 prefill (2 launches per
+     rank), again bitwise; on each rank one layer's local planes through
+     the kernel and its plain version; ms per prefill, decode step and train
+     step, collectives by kind and bytes (CommDebugMode), peak memory per
+     rank, a profiled sharded prefill on rank 0 — four ranks sharing one
+     card, not a scaling figure.
 
 The line before the last is the kernels' JSON record (``launches``: phase
 4d's; flash's ``launches`` phase 7's, ``family_launches`` phase 7b's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
 phase 4g (a)-(d)'s, ``mesh_served_launches``: phase 4g (e)'s mixes and
 ``shrink_launches``: phase 4h (a)-(b)'s, each summed over its ranks;
 ``eager_launches``: phase 4i's run_eager; ``train_launches``: phase 8's,
-and for flash ``train_flash_launches``, its attn_impl=flash run's); the
+and for flash ``train_flash_launches``, its attn_impl=flash run's, and
+``shard_launches``, phase 9's per rank, by run); the
 last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
 package ``repro``.
@@ -1600,6 +1624,582 @@ def train_only() -> int:
     stamp("end")
     log(card)
     log(json.dumps({"train": rec}))
+    return 0
+
+
+# Phase 9: LM sharding. Four ranks share cuda:0 over gloo (NCCL refuses two
+# ranks on one card) and form the (data 2, model 2) DeviceMesh; weights are
+# drawn from a seed on the card leaf by leaf, in init_params' order, and each
+# leaf is placed by the shardings at once, so no rank holds a whole tree
+# longer than one leaf (rank 0 keeps one for the unsharded comparisons).
+# Four ranks on one card: every time here is that, not a scaling figure.
+# (a) qwen2-1.5b at full width and depth served: a float32 sharded prefill
+# (flash_sharded sends each rank's data shard of the planes to the float32
+# kernel) against the unsharded port on rank 0; then bf16: a sharded prefill
+# through make_prefill_step with parameters placed by prefill_shardings (the
+# bf16 kernel, 28 launches per rank), again bitwise, and 16 greedy decode
+# steps through make_decode_step on the cache placed by decode_shardings,
+# against an unsharded session on rank 0 (prefill logits within the 8% band
+# of phases 7 and 7b; tokens compared, a row that turns away where the
+# unsharded top-2 gap exceeds the band is a failure). (b) smollm-360m at
+# full width and depth trained: one float32 step sharded against unsharded
+# (loss, gradients, then AdamW from the unsharded gradients), then three bf16
+# steps through make_train_step with parameters and moments placed by
+# train_shardings and the first step again, bitwise; its 15 heads and 5 kv
+# heads do not divide the model axis, so the guard replicates them
+# (rules.dropped). (c)
+# mixtral-8x7b at published widths, 2 of 32 layers (one card's memory, as
+# phase 8), moe_dispatch "shard_map": a float32 prefill at capacity factor
+# E / K (nothing drops, so per-shard and global dispatch are one function)
+# against the unsharded port; layer 0's MoE at the default capacity against
+# moe_ffn on each data shard in turn with the auxiliary terms averaged (the
+# reference's shard_map body); a bf16 prefill (2 launches per rank), again
+# bitwise. On every rank one layer's local planes go through the kernel and
+# its plain version (phase 6's tolerance), in bf16 and float32. The spawn
+# starts beside phase 4g's and is read after phase 8, so its times include
+# that load.
+SHARD_MESH = ((2, 2), ("data", "model"))
+SHARD_TIMEOUT_S, SHARD_WALL_S = 120.0, 900.0
+SHARD_THREADS = 2  # intra-op threads per rank: the ranks' work is host dispatch and gloo
+SHARD_ROOT = os.path.join(ROOT, "build", "chip_smoke_shard")
+SHARD_DECODE = 16
+SHARD_TRAIN_ARCH, SHARD_TRAIN_STEPS = "smollm-360m", 3
+SHARD_MOE_ARCH, SHARD_MOE_LAYERS, SHARD_MOE_BATCH, SHARD_MOE_SEQ = "mixtral-8x7b", 2, 8, 128
+# Sharded against unsharded in float32 (TF32 off): the same arithmetic with
+# the partial sums of the sharded contractions in another order. Logits
+# within 1e-4 of the largest |logit| (28 layers of reordered float32 sums);
+# the loss, gradients and AdamW as phase 8 (a) (TRAIN_*); the MoE layer's
+# output within 1e-4 of its largest |x|, its auxiliary terms within 1e-5 of
+# max(|term|, 1) (the dropped fraction may be 0; the others are of order 1).
+SHARD_LOGIT_TOL, SHARD_AUX_TOL = 1e-4, 1e-5
+
+
+def _drawn_placed(cfg, seed: int, shardings, keep_full: bool, mtp: int = 0):
+    """The parameters init_params draws from ``seed`` on the card, each leaf
+    placed by ``shardings`` as soon as it is drawn; the whole tree too where
+    ``keep_full``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import base as base_lib
+    from repro_torch.models import model as M
+
+    specs = M.model_specs(cfg, mtp)
+    flat = dict(base_lib.tree_leaves(shardings))
+    # detlint: ignore[DET001] — random model weights from a seed (the LM
+    # side-stack serves random weights), not simulation state
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    placed, full = {}, {}
+    for path, spec in base_lib.tree_leaves(specs):
+        a = base_lib._init_one(spec, gen, "cuda")
+        placed[path] = distribute_tensor(a, flat[path].mesh, flat[path].placements,
+                                         src_data_rank=None)
+        if keep_full:
+            full[path] = a
+        del a
+    return (base_lib.tree_unflatten(specs, placed),
+            base_lib.tree_unflatten(specs, full) if keep_full else None)
+
+
+def _comm_stats(fn):
+    """fn() under CommDebugMode (collectives by kind) and a dispatch mode
+    that adds up the bytes each functional collective takes in; returns
+    (fn's result, {kind: count}, {kind: bytes})."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    sent: dict = {}
+
+    class Bytes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if func.namespace == "_c10d_functional" and name != "wait_tensor" \
+                    and not name.startswith("_"):
+                n = sum(a.numel() * a.element_size() for a in args
+                        if isinstance(a, torch.Tensor))
+                sent[name] = sent.get(name, 0) + n
+            return func(*args, **(kwargs or {}))
+
+    comm = CommDebugMode()
+    with comm, Bytes():
+        out = fn()
+    counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+    return out, counts, sent
+
+
+def _flash_vs_plain(fk, q, k, v, kw) -> float:
+    """One layer's local planes (the model layout) through the kernel and its
+    plain version; phase 6's tolerance. Returns max |d|."""
+    B, Sq, M, G, Dh = q.shape
+    Sk = k.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * M * G, Sq, Dh).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(B * M, Sk, Dh).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(B * M, Sk, Dh).contiguous()
+    o_k = fk.flash_attention_bhsd_cuda(qf, kf, vf, **kw).float()
+    o_p = fk.flash_attention_bhsd_plain(qf, kf, vf, **kw).float()
+    atol, rtol = FLASH_TOL[q.dtype]
+    diff = (o_k - o_p).abs()
+    if float((diff - rtol * o_p.abs()).max()) > atol:
+        raise AssertionError(f"[shard] flash kernel != plain on a rank's planes "
+                             f"{tuple(q.shape)} {q.dtype}: max |d| {float(diff.max())}")
+    return float(diff.max())
+
+
+def _spied_prefill(fk, step, *args):
+    """step(*args) without grad, the flash launches counted from 0 and the
+    first kernel call's inputs kept; returns (out, launches, inputs)."""
+    from repro_torch.models import attention as attn
+
+    first, real = [], attn.flash_attention
+
+    def spy(q, k, v, **kw):
+        if not first:
+            first.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+
+    attn.flash_attention = spy
+    fk.flash_attention_bhsd_cuda.launches = 0
+    try:
+        with torch.no_grad():
+            out = step(*args)
+        torch.cuda.synchronize()
+    finally:
+        attn.flash_attention = real
+    return out, fk.flash_attention_bhsd_cuda.launches, first[0] if first else None
+
+
+def _local_bytes(tree) -> list:
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.models.sharding import is_dtensor
+
+    return fingerprint({"/".join(p): (a.to_local() if is_dtensor(a) else a)
+                        for p, a in tree_leaves(tree)})
+
+
+def _shard_serve(mesh, fk, say, card) -> dict:
+    """Phase 9 (a) on one rank."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import MeshRules
+
+    rank, out = dist.get_rank(), {}
+    cfgs = {dt: dataclasses.replace(get_config(SERVE_ARCH), compute_dtype=dt, attn_impl="flash")
+            for dt in ("float32", "bfloat16")}
+    cfg = cfgs["bfloat16"]
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SHARD_DECODE
+    rules = MeshRules.for_mesh(mesh)
+    (ps, bs), _ = steps.prefill_shardings(cfg, ShapeConfig("p", "prefill", P, B), rules, mesh,
+                                          None)
+    params, full = _drawn_placed(cfg, 0, ps, keep_full=rank == 0)
+    toks = torch.as_tensor(TokenPipeline(cfg.vocab_size, P, B, 0).batch(0), device="cuda").long()
+    batch = steps.place({"tokens": toks}, bs)
+    label = f"[shard:{SERVE_ARCH}]"
+    # float32: sharded against unsharded, the float32 kernel per data shard
+    (lg, _), n32, planes = _spied_prefill(fk, steps.make_prefill_step(cfgs["float32"], rules),
+                                          params, batch)
+    out["f32_err"] = _flash_vs_plain(fk, *planes)
+    whole = lg.full_tensor()
+    if rank == 0:
+        with torch.no_grad():
+            ref = M.forward_prefill(cfgs["float32"], full, {"tokens": toks})[0]
+        gap = float((whole - ref).abs().max() / ref.abs().max())
+        if not gap <= SHARD_LOGIT_TOL:
+            raise AssertionError(f"{label} float32 sharded prefill {gap:.3g} of max |logit| "
+                                 f"from the unsharded port's (tolerance {SHARD_LOGIT_TOL})")
+        say(f"{label} float32 prefill B={B} S={P}, 28 layers: sharded within {gap:.3g} of max "
+            f"|logit| of the unsharded port (tolerance {SHARD_LOGIT_TOL}); float32 kernel on "
+            f"each rank's {tuple(planes[0].shape)} planes, within tolerance of plain "
+            f"(max |d| {out['f32_err']:.3g})")
+        del ref
+    del lg, whole, planes
+    # bf16 prefill, twice
+    prefill = steps.make_prefill_step(cfg, rules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (lg, cache), n16, planes = _spied_prefill(fk, prefill, params, batch)
+    ms_first = 1e3 * (time.perf_counter() - t0)
+    out["bf16_err"] = _flash_vs_plain(fk, *planes)
+    del planes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (lg2, cache2), _, _ = _spied_prefill(fk, prefill, params, batch)
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    if _local_bytes({"l": lg, **cache}) != _local_bytes({"l": lg2, **cache2}):
+        raise AssertionError(f"{label} a second sharded prefill differs on rank {rank}")
+    del lg2, cache2
+    out["launches"], out["launches_f32"] = n16, n32
+    # the decode cache: the prefill's, P + G slots, placed by decode_shardings
+    dshape = ShapeConfig("d", "decode", P + G, B)
+    (_, dcs, dts, _), _ = steps.decode_shardings(
+        cfg, dshape, rules, mesh, M.init_cache(cfg, B, P + G, abstract=True))
+    cache = {k: torch.cat([c, torch.zeros_like(c[:, :, :, :G])], dim=3)
+             .redistribute(mesh, dcs[k].placements) for k, c in cache.items()}
+    decode = steps.make_decode_step(cfg, rules)
+    tok = torch.argmax(lg[:, -1, :].full_tensor(), dim=-1).to(torch.int32)[:, None]
+    tokens = [tok]
+    tok = steps.place(tok, dts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(G - 1):
+            tok, cache = decode(params, cache, tok, P + i)
+            tok = tok.redistribute(mesh, dts.placements)
+            tokens.append(tok.full_tensor())
+        torch.cuda.synchronize()
+        out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / (G - 1)
+        (tok, cache), dcounts, dbytes = _comm_stats(lambda: decode(params, cache, tok, P + G - 1))
+        tokens.append(tok.full_tensor())
+        (_, _), pcounts, pbytes = _comm_stats(lambda: prefill(params, batch))
+        # one more prefill, profiled on rank 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prefill(params, batch)
+                torch.cuda.synchronize()
+            device_summary(prof, (time.perf_counter() - t0) * 1e3, 1,
+                           f"shard:{SERVE_ARCH} prefill, rank 0 of 4 sharing the card", card)
+            del prof
+        else:
+            prefill(params, batch)
+    out["comm"] = {"prefill": (pcounts, pbytes), "decode step": (dcounts, dbytes)}
+    whole = lg.full_tensor()[:, -1].float()
+    got = torch.cat(tokens, dim=1)
+    if rank == 0:
+        # the unsharded session: prefill, the same greedy decode
+        p16 = M.cast_params(cfg, full)
+        with torch.no_grad():
+            ref, rc = M.forward_prefill(cfg, p16, {"tokens": toks})
+            rc = {k: torch.cat([c, torch.zeros_like(c[:, :, :, :G])], dim=3)
+                  for k, c in rc.items()}
+            steps_lg = [ref[:, -1].float()]
+            want = [torch.argmax(ref[:, -1], dim=-1).to(torch.int32)[:, None]]
+            for i in range(G):
+                lgi, rc = M.decode_step(cfg, p16, rc, want[-1], P + i)
+                steps_lg.append(lgi[:, -1].float())
+                want.append(torch.argmax(lgi[:, -1], dim=-1).to(torch.int32)[:, None])
+        want = torch.cat(want, dim=1)  # (B, G + 1), as got
+        scale = float(steps_lg[0].abs().max())
+        d = float((whole - steps_lg[0]).abs().max())
+        if d > SERVE_REL_TOL * scale:
+            raise AssertionError(f"{label} bf16 sharded prefill logits {d} from the unsharded "
+                                 f"port's, band {SERVE_REL_TOL} x {scale}")
+        agree, turned = int((got == want).sum()), []
+        for row in range(B):
+            bad = (got[row] != want[row]).nonzero()
+            if len(bad):
+                s = int(bad[0])
+                top2 = steps_lg[s][row].topk(2).values
+                gap = float(top2[0] - top2[1])
+                band = SERVE_REL_TOL * float(steps_lg[s].abs().max())
+                turned.append((row, s, gap, band))
+                if gap > band:
+                    raise AssertionError(f"{label} row {row} turns away from the unsharded "
+                                         f"greedy tokens at step {s}, where its top-2 gap "
+                                         f"{gap:.4f} exceeds the band {band:.4f}")
+        say(f"{label} bf16 prefill B={B} S={P}: {n16} flash launches on rank 0 (the bf16 "
+            f"kernel on {tuple(lg.to_local().shape)} local logits' rows), a second prefill "
+            f"bitwise; logits within {d:.5f} of the unsharded port's (band {SERVE_REL_TOL} x "
+            f"max |logit| {scale:.4f}); greedy tokens {agree} of {got.numel()} equal to the "
+            f"unsharded session's over {G} decode steps (rows turning away: (row, step, "
+            f"unsharded top-2 gap, band) {turned}); kernel vs plain on the local planes max "
+            f"|d| {out['bf16_err']:.3g}")
+        say(f"{label} four ranks sharing one card (not a scaling figure): sharded prefill "
+            f"{out['prefill_ms']:.1f} ms (first {ms_first:.1f} ms), decode "
+            f"{out['decode_ms']:.2f} ms per step; collectives per prefill {pcounts}, bytes "
+            f"in {pbytes}; per decode step {dcounts}, bytes in {dbytes}; {card}")
+    del params, cache, lg
+    return out
+
+
+def _shard_train(mesh, fk, say, card) -> dict:
+    """Phase 9 (b) on one rank."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as T
+    from repro_torch.models.base import tree_leaves, tree_map
+    from repro_torch.models.sharding import MeshRules
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    rank, out = dist.get_rank(), {}
+    base = dataclasses.replace(get_config(SHARD_TRAIN_ARCH), attn_impl="naive",
+                               remat_policy="nothing")
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    cfg = dataclasses.replace(base, compute_dtype="bfloat16")
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    rules = MeshRules.for_mesh(mesh)
+    (tps, tos, tbs), _ = steps.train_shardings(cfg, ShapeConfig("t", "train", S, B), rules, mesh)
+    label = f"[shard:{SHARD_TRAIN_ARCH}]"
+    if rank == 0:
+        say(f"{label} rules.dropped (the guard's replications): {rules.dropped}")
+    params, full = _drawn_placed(cfg, 0, tps, keep_full=True)
+    pipe = TokenPipeline(cfg.vocab_size, S, B, 0)
+    batch0 = T.make_batch(cfg, pipe, 0, "cuda")
+    # float32: one step sharded against unsharded
+    loss_s, _, g_s = steps.loss_and_grads(cfg32, params, steps.place(batch0, tbs), rules)
+    loss_u, _, g_u = steps.loss_and_grads(cfg32, full, batch0)
+    loss_s = float(loss_s.full_tensor())
+    gaps = {"/".join(p): (g.full_tensor(), g_u_) for (p, g), (_, g_u_)
+            in zip(tree_leaves(g_s), tree_leaves(g_u))}
+    del g_s
+    opt = AdamWConfig(lr=TRAIN_LR)
+    pb = steps.place(tree_map(lambda a: a.clone(), full), tps)
+    adamw_update(opt, pb, steps.place(g_u, tps), steps.place(adamw_init(full), tos))
+    upd = {"/".join(p): a.full_tensor() for p, a in tree_leaves(pb)}
+    del pb
+    if rank == 0:
+        if not abs(loss_s - float(loss_u)) <= TRAIN_LOSS_RTOL * abs(float(loss_u)):
+            raise AssertionError(f"{label} float32 loss {loss_s} sharded, {float(loss_u)} not")
+        rel, floor = TRAIN_GRAD_TOL
+        worst = (0.0, "")
+        for path, (g, want) in gaps.items():
+            m, d = float(want.abs().max()), float((g - want).abs().max())
+            if d > rel * m + floor:
+                raise AssertionError(f"{label} gradient {path} differs by {d:.3g} (largest "
+                                     f"|g| {m:.3g})")
+            worst = max(worst, (d / (m + floor / rel), path))
+        pa = tree_map(lambda a: a.clone(), full)
+        adamw_update(opt, pa, g_u, adamw_init(pa))
+        opt_gap = max(_leaf_gap(upd["/".join(p)], a) for p, a in tree_leaves(pa))
+        if not opt_gap <= TRAIN_OPT_RTOL:
+            raise AssertionError(f"{label} sharded AdamW {opt_gap:.3g} of a leaf's largest "
+                                 "|x| from the unsharded one")
+        say(f"{label} float32 step B={B} S={S}, 32 layers: loss {loss_s:.7f} sharded, "
+            f"{float(loss_u):.7f} unsharded; worst gradient leaf {worst[1]} at {worst[0]:.3g} "
+            f"of its largest |g|; AdamW from the same gradients within {opt_gap:.3g} of a "
+            f"leaf's largest |x|")
+        del pa
+    del gaps, upd, g_u
+    # bf16: three steps, twice
+    step = steps.make_train_step(cfg, opt, rules)
+    batches = [steps.place(T.make_batch(cfg, pipe, s, "cuda"), tbs)
+               for s in range(SHARD_TRAIN_STEPS)]
+    # the steps, then the first again from the same start under the
+    # collective counters (they observe: its values stay bitwise)
+    fresh = lambda: (steps.place(tree_map(lambda a: a.clone(), full), tps),
+                     steps.place(adamw_init(full), tos))
+    fk.flash_attention_bhsd_cuda.launches = 0
+    p, o = fresh()
+    losses, times = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, b)
+        losses.append(float(m["loss"].full_tensor()))
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            fp = _local_bytes({"p": p, "o": o})
+    del p, o
+    (p, o, m), counts, sent = _comm_stats(lambda: step(*fresh(), batches[0]))
+    out["launches"] = fk.flash_attention_bhsd_cuda.launches
+    if not all(np.isfinite(losses)) or float(m["loss"].full_tensor()) != losses[0] or \
+            _local_bytes({"p": p, "o": o}) != fp:
+        raise AssertionError(f"{label} bf16 steps: losses {losses}; the first step again "
+                             f"not bitwise on rank {rank}")
+    out["step_ms"] = 1e3 * float(np.median(times[1:]))
+    if rank == 0:
+        say(f"{label} bf16, remat nothing, naive attention, lr {TRAIN_LR}: losses {losses}, "
+            f"the first step again from the same start bitwise (loss, parameters and "
+            f"moments on every rank); {out['launches']} flash launches; four ranks sharing "
+            f"one card (not a scaling figure): median step {out['step_ms']:.1f} ms; "
+            f"collectives per step {counts}, bytes in {sent}; {card}")
+    del p, o, params, full, batches
+    return out
+
+
+def _shard_moe(mesh, fk, say, card) -> dict:
+    """Phase 9 (c) on one rank."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.sharding import MeshRules
+
+    rank, out = dist.get_rank(), {}
+    base = dataclasses.replace(get_config(SHARD_MOE_ARCH), num_layers=SHARD_MOE_LAYERS,
+                               moe_dispatch="shard_map", attn_impl="flash")
+    E, K = base.num_experts, base.experts_per_token
+    cfg = dataclasses.replace(base, compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    cfg32_all = dataclasses.replace(cfg32, capacity_factor=E / K)
+    B, S = SHARD_MOE_BATCH, SHARD_MOE_SEQ
+    rules = MeshRules.for_mesh(mesh)
+    (ps, bs), _ = steps.prefill_shardings(cfg, ShapeConfig("p", "prefill", S, B), rules, mesh,
+                                          None)
+    params, full = _drawn_placed(cfg, 0, ps, keep_full=rank == 0)
+    toks = torch.as_tensor(TokenPipeline(cfg.vocab_size, S, B, 0).batch(0), device="cuda").long()
+    batch = steps.place({"tokens": toks}, bs)
+    label = f"[shard:{SHARD_MOE_ARCH}]"
+    # float32 at capacity factor E / K: sharded against unsharded
+    (lg, _), _, _ = _spied_prefill(fk, steps.make_prefill_step(cfg32_all, rules), params, batch)
+    whole = lg.full_tensor()
+    # layer 0's MoE at the default capacity: shard_map against moe_ffn per
+    # data shard, the auxiliary terms averaged
+    # detlint: ignore[DET001] — seeded test activations, not simulation state
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # detlint: ignore[DET001] — the same seeded activations
+    h = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    layer0 = {k: v[0] for k, v in params["layers"].items()
+              if k in ("router", "w_gate", "w_up", "w_down")}
+    with torch.no_grad():
+        mo, maux = moe_lib.moe_ffn_dispatch(steps.place(h, steps.NamedSharding(
+            mesh, rules.spec(h.shape, ("batch", "seq", "embed")))), layer0, cfg32, rules)
+    mo = mo.full_tensor()
+    maux = {k: float(v.full_tensor()) for k, v in maux.items()}
+    if rank == 0:
+        with torch.no_grad():
+            ref = M.forward_prefill(cfg32_all, full, {"tokens": toks})[0]
+            gap = float((whole - ref).abs().max() / ref.abs().max())
+            f0 = {k: full["layers"][k][0] for k in layer0}
+            halves = [moe_lib.moe_ffn(x, f0, cfg32) for x in h.chunk(2)]
+        want = torch.cat([o for o, _ in halves])
+        aux_want = {k: float((halves[0][1][k] + halves[1][1][k]) / 2) for k in maux}
+        mgap = float((mo - want).abs().max() / want.abs().max())
+        agap = max(abs(maux[k] - aux_want[k]) / max(abs(aux_want[k]), 1.0) for k in maux)
+        if not (gap <= SHARD_LOGIT_TOL and mgap <= SHARD_LOGIT_TOL and agap <= SHARD_AUX_TOL):
+            raise AssertionError(f"{label} float32: prefill {gap:.3g}, MoE layer {mgap:.3g} "
+                                 f"of their largest |x|, aux {agap:.3g} of max(|term|, 1) "
+                                 "from the unsharded references")
+        say(f"{label} float32, {SHARD_MOE_LAYERS} of 32 layers, B={B} S={S}: shard_map "
+            f"prefill at capacity factor E/K within {gap:.3g} of max |logit| of the unsharded "
+            f"port's; layer 0's MoE at capacity factor {cfg.capacity_factor} within {mgap:.3g} "
+            f"of moe_ffn on each data shard, aux {maux} within {agap:.3g} of max(|term|, 1) of "
+            f"the shards' mean")
+        del ref, halves, f0
+    del lg, whole, mo
+    # bf16, twice
+    prefill = steps.make_prefill_step(cfg, rules)
+    (lg, _), n, _ = _spied_prefill(fk, prefill, params, batch)
+    t0 = time.perf_counter()
+    (lg2, _), _, _ = _spied_prefill(fk, prefill, params, batch)
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    if _local_bytes({"l": lg}) != _local_bytes({"l": lg2}) or \
+            not torch.isfinite(lg.to_local().float()).all():
+        raise AssertionError(f"{label} bf16 prefill not finite or a rerun differs")
+    out["launches"] = n
+    (_, _), counts, sent = _comm_stats(lambda: prefill(params, batch))
+    if rank == 0:
+        say(f"{label} bf16 prefill B={B} S={S}: {n} flash launches on rank 0, a second "
+            f"prefill bitwise; four ranks sharing one card (not a scaling figure): "
+            f"{out['prefill_ms']:.1f} ms; collectives per prefill {counts}, bytes in {sent}; "
+            f"{card}")
+    del params, full, lg, lg2
+    return out
+
+
+def _rank_shard(card: str) -> dict:
+    """Phase 9 on one of four ranks sharing cuda:0."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    torch.backends.cudnn.allow_tf32 = False
+    shape, names = SHARD_MESH
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=names)
+    lines = []
+    out = {"rank": dist.get_rank(), "lines": lines}
+    t0 = time.perf_counter()
+    for part, fn in (("serve", _shard_serve), ("train", _shard_train), ("moe", _shard_moe)):
+        out[part] = fn(mesh, fk, lines.append, card)
+        out[part]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _shard_spawn(card: str) -> tuple:
+    """Phase 9's spawn of four ranks; returns (their results, wall s)."""
+    import shutil
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    shutil.rmtree(SHARD_ROOT, ignore_errors=True)
+    os.makedirs(SHARD_ROOT)
+    t0 = time.perf_counter()
+    try:
+        res = mesh_lib.spawn(_rank_shard, 4, backend="gloo", device="cuda:0",
+                             init_dir=SHARD_ROOT, args=(card,), timeout_s=SHARD_TIMEOUT_S,
+                             wall_s=SHARD_WALL_S, threads=SHARD_THREADS)
+    finally:
+        shutil.rmtree(SHARD_ROOT, ignore_errors=True)
+    return res, time.perf_counter() - t0
+
+
+def start_shard_spawn(card: str):
+    """Start phase 9's spawn in a background thread, beside phase 4g's
+    spawns and phases 4e-4f (its ranks' card memory fits beside theirs; the
+    phases after 4i would not leave it room), so its times include that
+    load; :func:`shard_phase` takes the result."""
+    pool = ThreadPoolExecutor(max_workers=1)
+    job = pool.submit(_shard_spawn, card)
+    pool.shutdown(wait=False)
+    return job
+
+
+def shard_phase(card: str, job=None) -> dict:
+    """Phase 9: the spawn's results (``job``'s, or a spawn run here), its
+    lines and checks; returns the flash launches per rank of each part."""
+    res, wall = job.result() if job is not None else _shard_spawn(card)
+    for line in res[0]["lines"]:
+        log(line)
+    launches = {f"{SERVE_ARCH} prefill": [r["serve"]["launches"] for r in res],
+                f"{SERVE_ARCH} float32 prefill": [r["serve"]["launches_f32"] for r in res],
+                f"{SHARD_MOE_ARCH} prefill": [r["moe"]["launches"] for r in res],
+                f"{SHARD_TRAIN_ARCH} train steps": [r["train"]["launches"] for r in res]}
+    want = {f"{SERVE_ARCH} prefill": 28, f"{SERVE_ARCH} float32 prefill": 28,
+            f"{SHARD_MOE_ARCH} prefill": SHARD_MOE_LAYERS, f"{SHARD_TRAIN_ARCH} train steps": 0}
+    for k, n in want.items():
+        if launches[k] != [n] * 4:
+            raise AssertionError(f"[shard] flash launches per rank, {k}: {launches[k]}, "
+                                 f"expected {n} on each")
+    log(f"[shard] flash launches per rank: {json.dumps(launches)}; kernel vs plain on each "
+        f"rank's planes: bf16 max |d| {[r['serve']['bf16_err'] for r in res]}, float32 "
+        f"{[r['serve']['f32_err'] for r in res]}")
+    log(f"[shard] peak memory per rank (GiB): {[round(r['peak_gib'], 2) for r in res]}; "
+        f"rank 0's parts ended at {[round(res[0][p]['wall_s'], 1) for p in ('serve', 'train', 'moe')]} "
+        f"s; phase 9 wall {wall:.1f} s (spawn, four processes reaching the card, the draws; "
+        f"{'beside phases 4e-4i' if job is not None else 'alone'}); four ranks sharing one "
+        f"card; {card}")
+    return {"launches": launches}
+
+
+def shard_only() -> int:
+    """Phases 1, 2 (the flash source alone) and 9."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    card = card_line()
+    log(f"[device] {card}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}")
+    stamp("build")
+    log_flash_build(fk.build()[1], fk)
+    stamp("phase 9")
+    rec = shard_phase(card)
+    stamp("end")
+    log(card)
+    log(json.dumps({"shard": rec}))
     return 0
 
 
@@ -3302,9 +3902,11 @@ def main() -> int:
         return families_only()
     if sys.argv[1:] == ["--train-only"]:
         return train_only()
+    if sys.argv[1:] == ["--shard-only"]:
+        return shard_only()
     if len(sys.argv) != 1:
         print("usage: chip_smoke.py [--interactions-only SRC_DIR | --flash-only SRC_DIR | "
-              "--families-only | --train-only]", file=sys.stderr)
+              "--families-only | --train-only | --shard-only]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
@@ -3439,6 +4041,8 @@ def main() -> int:
 
     # ---- phase 4g's spawns start here and run beside phases 4e and 4f ------
     mesh_jobs = start_mesh_spawns(pop)
+    # ---- and phase 9's (LM sharding), collected after phase 8 ---------------
+    shard_job = start_shard_spawn(card)
 
     # ---- phase 4e: chunked runs and recovery ------------------------------
     stamp("chunked runs")
@@ -3511,6 +4115,10 @@ def main() -> int:
     stamp("phase 8")
     train = train_phase(flash_kernel, card)
 
+    # ---- phase 9: LM sharding on a 2 x 2 mesh (started beside phase 4g) -------
+    stamp("phase 9")
+    shard = shard_phase(card, shard_job)
+
     stamp("end")
     log(card)
     line = []
@@ -3546,6 +4154,7 @@ def main() -> int:
         "family_launches": {a: r["launches"] for a, r in families.items()},
         "train_launches": train["launches"]["flash_attention"],
         "train_flash_launches": train["flash_launches"],
+        "shard_launches": shard["launches"],
         **flash_rec,
     })
     log(json.dumps({"kernels": line}))

@@ -24,6 +24,13 @@ reference reshapes its devices into its hybrid mesh:
     group initialised from a file under ``init_dir``, so concurrent callers
     never race for a TCP port); ``torchrun`` starts them on a cluster.
 
+The language models shard on a ``torch.distributed.device_mesh.DeviceMesh``
+with named axes instead (``models/sharding.py``):
+:func:`make_production_mesh` is the reference's (16, 16) ``("data",
+"model")`` mesh, or (2, 16, 16) with ``"pod"``, over the initialised world;
+a smaller one comes from ``init_device_mesh`` over ranks that :func:`spawn`
+started.
+
 Two rules hold for every mesh. The backend (``gloo`` or ``nccl``) is the
 caller's choice and is never swapped: if ``nccl`` is refused, the call
 raises. Every group has a timeout: ``spawn`` initialises its group with one
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import queue as queue_lib
@@ -187,6 +195,28 @@ def make_hybrid_mesh(num_workers: int, num_scenarios: Optional[int] = None, *,
             raise no_group_error(num_workers, 1)
         num_scenarios = max(1, dist.get_world_size() // num_workers)
     return _grid(num_workers, num_scenarios, ("workers", "scenarios"), timeout_s)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production mesh as a ``DeviceMesh``: (16, 16)
+    ``("data", "model")``, or (2, 16, 16) ``("pod", "data", "model")`` for
+    the multi-pod layout, over the initialised world, which must have that
+    many ranks (the reference's ``jax.make_mesh`` raises likewise)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = mesh_num_devices(shape)
+    have = dist.get_world_size() if dist.is_available() and dist.is_initialized() else None
+    if have != n:
+        raise RuntimeError(f"the production mesh {shape} {axes} needs an initialised world of "
+                           f"{n} ranks, have {have if have is not None else 'none'}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def mesh_num_devices(mesh) -> int:
+    """The number of devices of a ``DeviceMesh``, or of a mesh shape."""
+    return math.prod(mesh if isinstance(mesh, tuple) else mesh.shape)
 
 
 def join_torchrun(backend: str, device, *, timeout_s: float = TIMEOUT_S) -> None:

@@ -4,7 +4,8 @@ Each model family declares its parameters once as a tree (nested dicts) of
 ``ParamSpec`` (shape + logical axes + init rule), as the reference's
 ``repro/models/base.py`` does. From it the port derives the concrete
 parameters, a plain dict tree of tensors under the reference's names and
-shapes, and the parameter count.
+shapes, the parameter count and, through ``models/sharding.py``'s rules,
+each parameter's partition spec.
 
 Initialisation follows the reference's per-spec rule but draws from an
 explicit ``torch.Generator``, so its values differ from ``jax.random``'s;
@@ -92,6 +93,14 @@ def init_params(spec_tree, generator: torch.Generator, device):
             node = node.setdefault(k, {})
         node[path[-1]] = _init_one(spec, generator, device)
     return out
+
+
+def param_partition_specs(spec_tree, rules):
+    """The tree of ``rules.spec`` for every ``ParamSpec`` of ``spec_tree``,
+    asked in sorted-key order (``jax.tree``'s), so that ``rules.dropped``
+    lists the guard's events in the reference's order."""
+    flat = {path: rules.spec(s.shape, s.axes) for path, s in tree_leaves(spec_tree)}
+    return tree_unflatten(spec_tree, flat)
 
 
 def param_count(spec_tree) -> int:

@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as shard_lib
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.transformer import _ckpt, layer_list
 
@@ -80,27 +81,28 @@ def model_specs(cfg, max_target_positions: int = 448) -> dict:
 
 def _project(x, w, b):
     """x (B, S, D) through w (D, n, Dh) plus b (n, Dh) -> (B, S, n, Dh)."""
-    B, S, D = x.shape
-    return (x @ w.reshape(D, -1)).reshape(B, S, *w.shape[1:]) + b
+    return shard_lib.split_dim(x @ shard_lib.merge_dims(w, 1), -1, tuple(w.shape[1:])) + b
 
 
-def _mha(x, kv_x, layer, cfg, prefix="", causal=False, mask=None, train=False):
+def _mha(x, kv_x, layer, cfg, prefix="", causal=False, mask=None, train=False, rules=None):
     """Generic (self or cross) full attention with biases, no RoPE. Three
     routes, as the reference's: the flash kernel for causal self-attention
-    (Sq == Sk) under ``attn_impl="flash"`` (in a training forward,
-    ``train``, the chunked online softmax in its place, as the reference
-    does without a mesh); the chunked online softmax under ``"chunked"``
-    when the keys divide into chunks; else ``attend`` with ``mask`` (by
-    default causal or full)."""
-    H, M, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    B, Sq, _ = x.shape
-    Sk = kv_x.shape[1]
+    (Sq == Sk) under ``attn_impl="flash"`` (with ``rules``, through
+    ``attention.flash_sharded``; in a training forward, ``train``, the
+    chunked online softmax in its place, as the reference does without a
+    mesh); the chunked online softmax under ``"chunked"`` when the keys
+    divide into chunks; else ``attend`` with ``mask`` (by default causal or
+    full)."""
+    H, M = cfg.num_heads, cfg.num_kv_heads
+    Sq, Sk = x.shape[1], kv_x.shape[1]
     q = _project(x, layer[prefix + "wq"], layer[prefix + "bq"])
     k = _project(kv_x, layer[prefix + "wk"], layer[prefix + "bk"])
     v = _project(kv_x, layer[prefix + "wv"], layer[prefix + "bv"])
-    q = q.reshape(B, Sq, M, H // M, Dh)
+    q = shard_lib.split_dim(q, 2, (M, H // M))
     flash = cfg.attn_impl == "flash" and mask is None and causal and Sq == Sk
-    if flash and not train:
+    if flash and not train and rules is not None:
+        out = attn_lib.flash_sharded(q, k, v, cfg, rules, causal=True)
+    elif flash and not train:
         out = flash_attention(q, k, v, causal=True)
     elif flash or (cfg.attn_impl == "chunked" and mask is None
                    and Sk % min(cfg.attn_chunk, Sk) == 0):
@@ -116,49 +118,54 @@ def _mha(x, kv_x, layer, cfg, prefix="", causal=False, mask=None, train=False):
     return attn_lib.out_project(out, {"wo": layer[prefix + "wo"]}) + layer[prefix + "bo"]
 
 
-def _enc_layer(x, layer, cfg, train):
+def _enc_layer(x, layer, cfg, train, rules):
     hn = L.layer_norm(x, layer["ln1_w"], layer["ln1_b"], cfg.norm_eps)
-    x = x + _mha(hn, hn, layer, cfg, train=train)
+    x = x + _mha(hn, hn, layer, cfg, train=train, rules=rules)
     hn = L.layer_norm(x, layer["ln2_w"], layer["ln2_b"], cfg.norm_eps)
     return x + L.gelu_mlp(hn, layer["w_in"], layer["b_in"], layer["w_out"], layer["b_out"])
 
 
-def _dec_layer(x, layer, enc_out, cfg, train):
+def _dec_layer(x, layer, enc_out, cfg, train, rules):
     hn = L.layer_norm(x, layer["ln1_w"], layer["ln1_b"], cfg.norm_eps)
-    x = x + _mha(hn, hn, layer, cfg, causal=True, train=train)
+    x = x + _mha(hn, hn, layer, cfg, causal=True, train=train, rules=rules)
     hn = L.layer_norm(x, layer["ln2_w"], layer["ln2_b"], cfg.norm_eps)
-    x = x + _mha(hn, enc_out, layer, cfg, prefix="x_", train=train)
+    x = x + _mha(hn, enc_out, layer, cfg, prefix="x_", train=train, rules=rules)
     hn = L.layer_norm(x, layer["ln3_w"], layer["ln3_b"], cfg.norm_eps)
     return x + L.gelu_mlp(hn, layer["w_in"], layer["b_in"], layer["w_out"], layer["b_out"])
 
 
-def encode(cfg, params, frames, *, train=False):
+def encode(cfg, params, frames, *, train=False, rules=None):
     """frames: (B, F, D) precomputed embeddings (frontend stub). Each layer
     runs under remat (``transformer._ckpt``) where grad mode is on;
-    ``train`` marks a training forward (see :func:`_mha`)."""
+    ``train`` marks a training forward (see :func:`_mha`); ``rules``: the
+    sharding rules, or None."""
     pe = L.sinusoidal_positions(frames.shape[1], cfg.d_model, device=frames.device)
     x = frames + pe[None].to(frames.dtype)
-    body = _ckpt(lambda h, layer: _enc_layer(h, layer, cfg, train), cfg)
+    body = _ckpt(lambda h, layer: _enc_layer(h, layer, cfg, train, rules), cfg)
     for layer in layer_list(params["enc_layers"]):
         x = body(x, layer)
     return L.layer_norm(x, params["enc_norm_w"], params["enc_norm_b"], cfg.norm_eps)
 
 
-def decode_train(cfg, params, tokens, enc_out, *, train=False):
+def decode_train(cfg, params, tokens, enc_out, *, train=False, rules=None):
     """Teacher-forced decoder. tokens: (B, S). Returns logits (B, S, V).
-    Remat and ``train`` as in :func:`encode`."""
+    Remat, ``train`` and ``rules`` as in :func:`encode`."""
     S = tokens.shape[1]
-    x = (params["embed"][tokens] + params["pos_dec"][None, :S]).to(enc_out.dtype)
-    body = _ckpt(lambda h, layer, enc: _dec_layer(h, layer, enc, cfg, train), cfg)
+    x = (L.embed(tokens, params["embed"]) + params["pos_dec"][None, :S]).to(enc_out.dtype)
+    body = _ckpt(lambda h, layer, enc: _dec_layer(h, layer, enc, cfg, train, rules), cfg)
     for layer in layer_list(params["dec_layers"]):
         x = body(x, layer, enc_out)
     x = L.layer_norm(x, params["dec_norm_w"], params["dec_norm_b"], cfg.norm_eps)
-    return x @ params["embed"].to(x.dtype).t()
+    logits = x @ params["embed"].to(x.dtype).t()
+    return logits if rules is None else rules.constraint(logits, "batch", "seq", "vocab")
 
 
-def init_cache(cfg, batch, cache_len, enc_frames=None, *, device, dtype=torch.bfloat16):
+def init_cache(cfg, batch, cache_len, enc_frames=None, *, device=None, dtype=torch.bfloat16,
+               abstract=False):
     """k/v (n, B, M, cache_len, Dh) for decoder self-attention and the
-    cross-attention xk/xv (n, B, M, F, Dh), all zeros."""
+    cross-attention xk/xv (n, B, M, F, Dh), all zeros (``abstract``: shapes
+    and dtypes only, ``meta`` tensors)."""
+    device = "meta" if abstract else device
     n = cfg.num_layers
     M, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
     F = enc_frames or cfg.enc_frames
@@ -172,13 +179,18 @@ def init_cache(cfg, batch, cache_len, enc_frames=None, *, device, dtype=torch.bf
     }
 
 
+def cache_axes_tree(cfg, cache):
+    ax = ("layers", "batch", "kv_heads", "cache_seq", "head_dim")
+    xax = ("layers", "batch", "kv_heads", "frames", "head_dim")
+    return {"k": ax, "v": ax, "xk": xax, "xv": xax}
+
+
 def decode_step(cfg, params, cache, token, pos: int):
     """token: (B, 1); pos: absolute position (a Python int). Writes the
     step's self-attention key/value into ``cache`` in place; returns
     (logits (B, 1, V), cache)."""
-    B = token.shape[0]
-    x = params["embed"][token] + params["pos_dec"][pos][None, None, :]
-    H, M, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    x = L.embed(token, params["embed"]) + params["pos_dec"][pos][None, None, :]
+    H, M = cfg.num_heads, cfg.num_kv_heads
     _, valid = attn_lib.decode_tables(cfg, pos, cache["k"].shape[3], device=x.device)
     full = torch.ones((1, 1, 1, 1, cache["xk"].shape[3]), dtype=torch.bool, device=x.device)
     for i, layer in enumerate(layer_list(params["dec_layers"])):
@@ -186,15 +198,15 @@ def decode_step(cfg, params, cache, token, pos: int):
         hn = L.layer_norm(x, layer["ln1_w"], layer["ln1_b"], cfg.norm_eps)
         q = _project(hn, layer["wq"], layer["bq"])
         slot = pos % k.shape[2]
-        k[:, :, slot] = _project(hn, layer["wk"], layer["bk"])[:, 0].to(k.dtype)
-        v[:, :, slot] = _project(hn, layer["wv"], layer["bv"])[:, 0].to(v.dtype)
-        out = attn_lib.attend(q.reshape(B, 1, M, H // M, Dh),
+        attn_lib.write_slot(k, _project(hn, layer["wk"], layer["bk"])[:, 0], slot)
+        attn_lib.write_slot(v, _project(hn, layer["wv"], layer["bv"])[:, 0], slot)
+        out = attn_lib.attend(shard_lib.split_dim(q, 2, (M, H // M)),
                               k.permute(0, 2, 1, 3).to(q.dtype),
                               v.permute(0, 2, 1, 3).to(q.dtype), valid, cfg)
         x = x + attn_lib.out_project(out, layer) + layer["bo"]
         # cross attention against precomputed enc K/V
         hn = L.layer_norm(x, layer["ln2_w"], layer["ln2_b"], cfg.norm_eps)
-        qx = _project(hn, layer["x_wq"], layer["x_bq"]).reshape(B, 1, M, H // M, Dh)
+        qx = shard_lib.split_dim(_project(hn, layer["x_wq"], layer["x_bq"]), 2, (M, H // M))
         outx = attn_lib.attend(qx, xk.permute(0, 2, 1, 3).to(qx.dtype),
                                xv.permute(0, 2, 1, 3).to(qx.dtype), full, cfg)
         x = x + attn_lib.out_project(outx, {"wo": layer["x_wo"]}) + layer["x_bo"]

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding import gather_rows, is_dtensor, reduce_partial, whole_last
+
 
 def matmul(a, b):
     """``a @ b`` in the promoted dtype of the two operands."""
@@ -25,7 +27,7 @@ def matmul(a, b):
 
 def rms_norm(x, weight, eps: float = 1e-6):
     dtype = x.dtype
-    x = x.float()
+    x = whole_last(x).float()
     var = (x * x).mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * weight).to(dtype)
@@ -35,7 +37,7 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     """LayerNorm in float32 with the population variance (``jnp.var``),
     cast back to x's dtype."""
     dtype = x.dtype
-    x = x.float()
+    x = whole_last(x).float()
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     out = (x - mu) * torch.rsqrt(var + eps)
@@ -69,9 +71,11 @@ def rope(x, positions, theta: float = 10000.0):
     return apply_rope(x, *rope_angles(positions, x.shape[-1], theta, x.dim()))
 
 
-def swiglu(x, w_gate, w_up, w_down):
+def swiglu(x, w_gate, w_up, w_down, rules=None):
     """SwiGLU MLP. x: (B, S, D); w_gate/w_up: (D, F); w_down: (F, D)."""
     h = F.silu(matmul(x, w_gate)) * matmul(x, w_up)
+    if rules is not None:
+        h = rules.constraint(h, "batch", "seq", "mlp")
     return matmul(h, w_down)
 
 
@@ -83,12 +87,17 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out):
 
 
 def embed(tokens, table):
-    return table[tokens]
+    """The rows of ``table`` at ``tokens`` (on a DTensor table,
+    ``sharding.gather_rows``)."""
+    return gather_rows(table, tokens) if is_dtensor(table) else table[tokens]
 
 
-def unembed(x, table):
+def unembed(x, table, rules=None):
     """x: (B, S, D); table: (V, D) -> logits (B, S, V)."""
-    return matmul(x, table.t())
+    logits = matmul(x, table.t())
+    if rules is not None:
+        logits = rules.constraint(logits, "batch", "seq", "vocab")
+    return logits
 
 
 def sinusoidal_positions(length: int, dim: int, device=None):
@@ -106,10 +115,12 @@ def cross_entropy_loss(logits, labels, mask=None):
     """Mean cross entropy over valid positions; logits (B, S, V), labels
     (B, S). The log-partition in float32, the gold logit by ``gather``
     (one index per row, so its backward adds at most one value into each
-    element), and the masked mean with the count clamped at 1."""
+    element), and the masked mean with the count clamped at 1. On
+    vocab-sharded DTensor logits the gather's partial sums are reduced
+    before its last dimension is dropped."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = reduce_partial(torch.gather(logits, -1, labels[..., None].long()))[..., 0]
     nll = logz - gold
     if mask is None:
         mask = torch.ones_like(nll)

@@ -23,14 +23,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import matmul
+from repro_torch.models.sharding import reduce_partial
 from repro_torch.models.ssd import causal_conv1d, conv_decode_step
 
 C_FACTOR = 8.0
 
 
 def _gates(x, p):
-    r = torch.sigmoid(matmul(x, p["w_a"]) + p["b_a"])
-    i = torch.sigmoid(matmul(x, p["w_x"]) + p["b_x"])
+    # a product over the sharded lru width is a partial sum: reduced before
+    # the sharded bias (DTensor cannot turn the bias into a partial sum)
+    r = torch.sigmoid(reduce_partial(matmul(x, p["w_a"])) + p["b_a"])
+    i = torch.sigmoid(reduce_partial(matmul(x, p["w_x"])) + p["b_x"])
     log_a = -C_FACTOR * F.softplus(p["lam"]) * r  # (B, S, W)
     return log_a, i
 
@@ -71,12 +74,14 @@ def rglru_decode_step(x, p, state):
     return h, h
 
 
-def recurrent_block(x, p, cfg, state=None):
+def recurrent_block(x, p, cfg, state=None, rules=None):
     """Griffin recurrent block, full-sequence. x: (B, S, D).
     Returns (out (B,S,D), (conv_tail, lru_state)); ``conv_tail`` is the last
     k - 1 *pre-conv* inputs."""
     y_gate = F.gelu(matmul(x, p["w_gelu"]), approximate="tanh")
     xl = matmul(x, p["w_lin"])
+    if rules is not None:
+        xl = rules.constraint(xl, "batch", "seq", "lru")
     xc = causal_conv1d(xl, p["conv_w"], p["conv_b"])
     h, lru_state = rglru_scan(xc, p, initial_state=state[1] if state else None)
     out = matmul(y_gate * h, p["w_out"])

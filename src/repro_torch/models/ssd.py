@@ -12,14 +12,15 @@ Everything runs in float32, as the reference's.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from repro_torch.models.sharding import cumsum
 
 
 def segsum(x):
     """Stable 'segment sum' producing the (..., Q, Q) decay matrix exponent:
     out[i, j] = sum_{k in (j, i]} x[k] for j <= i else -inf."""
     Q = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
+    cs = cumsum(x, -1)
     diff = cs[..., :, None] - cs[..., None, :]  # (..., i, j)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     return torch.where(mask, diff, float("-inf"))
@@ -35,7 +36,8 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int, initial_state=None):
         # input contribution dt*x=0, so the final state is unaffected and
         # the padded y rows are sliced off below.
         pad = chunk - S % chunk
-        padf = lambda a: F.pad(a, [0, 0] * (a.dim() - 2) + [0, pad])
+        padf = lambda a: torch.cat([a, torch.zeros_like(a[:, :1]).expand(
+            -1, pad, *a.shape[2:])], dim=1)
         y, state = ssd_scan_ref(padf(x), padf(dt), A, padf(B), padf(C), chunk,
                                 initial_state)
         return y[:, :S], state
@@ -51,7 +53,7 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int, initial_state=None):
     Bc, Cc = heads(B), heads(C)  # (b, c, q, H, N)
 
     dA = dtc * A  # (b, c, q, H)
-    dAc = torch.cumsum(dA, dim=2)
+    dAc = cumsum(dA, 2)
 
     # Intra-chunk: Y_intra[i] = sum_{j<=i} C_i B_j^T exp(sum_{(j,i]} dA) dt_j x_j
     L = torch.exp(segsum(dA.permute(0, 1, 3, 2)))  # (b, c, H, q, q)
@@ -102,9 +104,10 @@ def ssd_decode_step(x, dt, A, B, C, state):
 
 
 def causal_conv1d(x, w, b=None):
-    """Depthwise causal conv. x: (B, S, Cdim); w: (k, Cdim)."""
+    """Depthwise causal conv. x: (B, S, Cdim); w: (k, Cdim). The k - 1
+    leading zeros are concatenated (DTensor's strategy for a pad fails)."""
     k = w.shape[0]
-    pad = F.pad(x, [0, 0, k - 1, 0])
+    pad = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1), x], dim=1)
     out = pad[:, 0:x.shape[1], :] * w[0][None, None, :]
     for i in range(1, k):
         out = out + pad[:, i:i + x.shape[1], :] * w[i][None, None, :]

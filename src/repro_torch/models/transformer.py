@@ -10,6 +10,10 @@ remainder, and returns the reference's nested prefill cache. Where grad
 mode is on, each layer (each hybrid cycle) runs under :func:`_ckpt`, the
 reference's remat, on the reference's boundaries.
 
+With sharding rules (``models/sharding.py``) every block takes the
+reference's constraints and the parameters, activations and caches are
+DTensors; without, everything runs on one device.
+
 Decode writes attention keys and values into the cache in place; the
 recurrent states (``conv``, ``ssm``, ``lru``) are replaced by the step's new
 stacked tensors, whose dtype is the reference's (a float32 step promotes
@@ -218,23 +222,24 @@ def _mlp_of(layer) -> dict:
     return mlp if mlp else layer
 
 
-def _swiglu(h, layer):
+def _swiglu(h, layer, rules=None):
     mlp = _mlp_of(layer)
-    return L.swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+    return L.swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"], rules)
 
 
-def attn_block(x, layer, cfg, rot, *, window, train=False):
+def attn_block(x, layer, cfg, rot, *, window, train=False, rules=None):
     """Pre-norm attention then the FFN (MoE for the moe family). Returns
     (x, (k, v), aux); aux is the MoE's, else empty. ``train``: see
     ``attention.self_attention``."""
     h = L.rms_norm(x, layer["ln1"], cfg.norm_eps)
-    out, kv = attn_lib.self_attention(h, layer, cfg, rot, window=window, train=train)
+    out, kv = attn_lib.self_attention(h, layer, cfg, rot, window=window, train=train,
+                                      rules=rules)
     x = x + out
     h = L.rms_norm(x, layer["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        m, aux = moe_lib.moe_ffn_dispatch(h, layer, cfg)
+        m, aux = moe_lib.moe_ffn_dispatch(h, layer, cfg, rules)
     else:
-        m, aux = _swiglu(h, layer), {}
+        m, aux = _swiglu(h, layer, rules), {}
     return x + m, kv, aux
 
 
@@ -268,12 +273,12 @@ def ssd_block(x, layer, cfg, state=None):
     return x + out, (conv_tail, ssm_state)
 
 
-def rec_block(x, layer, cfg, state=None):
+def rec_block(x, layer, cfg, state=None, rules=None):
     h = L.rms_norm(x, layer["ln1"], cfg.norm_eps)
-    out, new_state = rglru_lib.recurrent_block(h, layer, cfg, state)
+    out, new_state = rglru_lib.recurrent_block(h, layer, cfg, state, rules)
     x = x + out
     h = L.rms_norm(x, layer["ln2"], cfg.norm_eps)
-    return x + _swiglu(h, layer), new_state
+    return x + _swiglu(h, layer, rules), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -285,12 +290,13 @@ def _zero_aux() -> dict:
     return {"load_balance": 0.0, "router_z": 0.0, "dropped_fraction": 0.0}
 
 
-def stack_forward(cfg, params, x, *, want_cache=False, cache_len=0, train=False):
+def stack_forward(cfg, params, x, *, want_cache=False, cache_len=0, train=False, rules=None):
     """x: (B, S, D) embedded input. Returns (hidden (B,S,D), cache or None,
     aux). The cache is the reference's: k/v (n, B, M, T, Dh) for attention
     stacks, (conv tails, ssm states) for ssm, the nested cycles/remainder
     tree for hybrid; aux the mean over layers of the MoE's. ``train`` marks
-    a training forward (``attention.self_attention``)."""
+    a training forward (``attention.self_attention``); ``rules``: the
+    sharding rules, or None."""
     if cfg.family == "ssm":
         body = _ckpt(lambda h, layer: ssd_block(h, layer, cfg), cfg)
         states = []
@@ -302,12 +308,12 @@ def stack_forward(cfg, params, x, *, want_cache=False, cache_len=0, train=False)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None, :]
     rot = attn_lib.rotary(cfg, positions)
     if cfg.family == "hybrid":
-        return _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train)
+        return _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train, rules)
 
     # dense / moe / vlm
     window = cfg.attn_window
-    body = _ckpt(lambda h, layer: attn_block(h, layer, cfg, rot, window=window, train=train),
-                 cfg)
+    body = _ckpt(lambda h, layer: attn_block(h, layer, cfg, rot, window=window, train=train,
+                                             rules=rules), cfg)
     caches, auxs = [], []
     for layer in layer_list(params["layers"]):
         x, kv, aux = body(x, layer)
@@ -321,20 +327,23 @@ def stack_forward(cfg, params, x, *, want_cache=False, cache_len=0, train=False)
 
 
 def _kv_to_cache(kv, cache_len, window):
-    """(k, v) of (B, S, M, Dh) -> ring-buffer cache (B, M, T, Dh)."""
+    """(k, v) of (B, S, M, Dh) -> ring-buffer cache (B, M, T, Dh): the last
+    T positions, position p in slot p % T, i.e. rotated by (S - T) % T."""
     k, v = kv
     S = k.shape[1]
     T = min(cache_len or S, window or S, S) if (window or cache_len) else S
     T = min(T, S)
-    slots = torch.arange(S - T, S, device=k.device) % T
-    kk = torch.zeros((k.shape[0], k.shape[2], T, k.shape[3]), dtype=k.dtype, device=k.device)
-    vv = torch.zeros_like(kk)
-    kk[:, :, slots] = k[:, S - T:].permute(0, 2, 1, 3)
-    vv[:, :, slots] = v[:, S - T:].permute(0, 2, 1, 3)
-    return {"k": kk, "v": vv}
+    r = (S - T) % T
+
+    def ring(a):
+        a = a[:, S - T:].permute(0, 2, 1, 3)
+        # a concatenation, not an index write: it has a sharding strategy
+        return torch.cat([a[:, :, T - r:], a[:, :, :T - r]], dim=2)
+
+    return {"k": ring(k), "v": ring(v)}
 
 
-def _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train=False):
+def _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train=False, rules=None):
     """Whole (rec, rec, attn) cycles (cycle c uses attention layer c), then
     the remainder as rec layers; remat (:func:`_ckpt`) wraps each whole
     cycle, not the remainder, as the reference's scan body. The cache, if
@@ -352,11 +361,12 @@ def _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train=False):
         states, rj = [], 0
         for t in cfg.block_pattern:
             if t == "rec":
-                h, st = rec_block(h, rec_layers[rj], cfg)
+                h, st = rec_block(h, rec_layers[rj], cfg, rules=rules)
                 states.append(st)
                 rj += 1
             else:
-                h, kv, _ = attn_block(h, attn_layer, cfg, rot, window=window, train=train)
+                h, kv, _ = attn_block(h, attn_layer, cfg, rot, window=window, train=train,
+                                      rules=rules)
                 states.append(_kv_to_cache(kv, cache_len, window) if want_cache else None)
         return h, tuple(states)
 
@@ -368,7 +378,7 @@ def _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train=False):
     ri = cycles * n_rec
     rem_states = []
     for i in range(len(rem)):
-        x, st = rec_block(x, rec[ri + i], cfg)
+        x, st = rec_block(x, rec[ri + i], cfg, rules=rules)
         rem_states.append(st)
     cache = None
     if want_cache:
@@ -382,12 +392,15 @@ def _hybrid_forward(cfg, params, x, rot, want_cache, cache_len, train=False):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, batch: int, cache_len: int, *, device, dtype=torch.bfloat16):
+def init_cache(cfg, batch: int, cache_len: int, *, device=None, dtype=torch.bfloat16,
+               abstract=False):
     """Stacked per-layer decode state, in ``dtype`` (bf16 by default,
     whatever the compute dtype, as the reference's) except the float32
     ``ssm`` and ``lru`` states: k/v (n, B, M, T, Dh); ssm: conv
     (n, B, d_conv - 1, conv_dim) and ssm (n, B, H, P, N); hybrid: conv
-    (n_rec, B, 3, W), lru (n_rec, B, W) and a local-window k/v."""
+    (n_rec, B, 3, W), lru (n_rec, B, W) and a local-window k/v.
+    ``abstract``: shapes and dtypes only (``meta`` tensors)."""
+    device = "meta" if abstract else device
     zeros = lambda s, d: torch.zeros(s, dtype=d, device=device)
     n = cfg.num_layers
     if cfg.family == "ssm":
@@ -413,7 +426,19 @@ def init_cache(cfg, batch: int, cache_len: int, *, device, dtype=torch.bfloat16)
     return {"k": zeros((n, batch, M, T, Dh), dtype), "v": zeros((n, batch, M, T, Dh), dtype)}
 
 
-def _attn_decode_layer(x, layer, cache, i, pos, cfg, tables):
+def cache_axes_tree(cfg, cache):
+    """Logical axes for each cache leaf (for shardings)."""
+    ax = {
+        "k": ("layers", "batch", "kv_heads", "cache_seq", "head_dim"),
+        "v": ("layers", "batch", "kv_heads", "cache_seq", "head_dim"),
+        "conv": ("layers", "batch", "conv", "lru"),
+        "lru": ("layers", "batch", "lru"),
+        "ssm": ("layers", "batch", None, "head_dim", "state"),
+    }
+    return {k: ax[k] for k in cache}
+
+
+def _attn_decode_layer(x, layer, cache, i, pos, cfg, tables, rules=None):
     """One attention layer of a decode step: attention into layer i's ring
     (in place), then the FFN."""
     hn = L.rms_norm(x, layer["ln1"], cfg.norm_eps)
@@ -422,11 +447,11 @@ def _attn_decode_layer(x, layer, cache, i, pos, cfg, tables):
     x = x + out
     hn = L.rms_norm(x, layer["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        return x + moe_lib.moe_ffn_dispatch(hn, layer, cfg)[0]
-    return x + _swiglu(hn, layer)
+        return x + moe_lib.moe_ffn_dispatch(hn, layer, cfg, rules)[0]
+    return x + _swiglu(hn, layer, rules)
 
 
-def decode_stack(cfg, params, x, cache, pos: int):
+def decode_stack(cfg, params, x, cache, pos: int, rules=None):
     """x: (B, 1, D); pos: absolute position. Updates ``cache`` (see the
     module docstring); returns (hidden, cache)."""
     if cfg.family == "ssm":
@@ -439,11 +464,11 @@ def decode_stack(cfg, params, x, cache, pos: int):
         cache["conv"], cache["ssm"] = _stack(convs), _stack(ssms)
         return x, cache
     if cfg.family == "hybrid":
-        return _hybrid_decode(cfg, params, x, cache, pos)
+        return _hybrid_decode(cfg, params, x, cache, pos, rules)
     tables = attn_lib.decode_tables(cfg, pos, cache["k"].shape[3], window=cfg.attn_window,
                                     device=x.device)
     for i, layer in enumerate(layer_list(params["layers"])):
-        x = _attn_decode_layer(x, layer, cache, i, pos, cfg, tables)
+        x = _attn_decode_layer(x, layer, cache, i, pos, cfg, tables, rules)
     return x, cache
 
 
@@ -472,7 +497,7 @@ def _ssd_decode_block(x, layer, cfg, state):
     return x + out[:, None, :], (conv_st, ssm_st)
 
 
-def _hybrid_decode(cfg, params, x, cache, pos: int):
+def _hybrid_decode(cfg, params, x, cache, pos: int, rules=None):
     """The reference's layer walk: rec layers update conv/lru, attention
     layers their local-window ring. After the first rec layer x is float32
     (the float32 lru state promotes it, as in the reference)."""
@@ -489,12 +514,12 @@ def _hybrid_decode(cfg, params, x, cache, pos: int):
                 hn, layer, (cache["conv"][ri].to(x.dtype), cache["lru"][ri]))
             x = x + out
             hn = L.rms_norm(x, layer["ln2"], cfg.norm_eps)
-            x = x + _swiglu(hn, layer)
+            x = x + _swiglu(hn, layer, rules)
             convs.append(conv)
             lrus.append(lru)
             ri += 1
         else:
-            x = _attn_decode_layer(x, attn[ai], cache, ai, pos, cfg, tables)
+            x = _attn_decode_layer(x, attn[ai], cache, ai, pos, cfg, tables, rules)
             ai += 1
     cache["conv"], cache["lru"] = _stack(convs), _stack(lrus)
     return x, cache

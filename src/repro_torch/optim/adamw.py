@@ -13,6 +13,11 @@ it), and the only extra memory is two float32 temporaries the size of the
 largest leaf. So an optimizer step at full width needs no second copy of
 the parameters and moments. :func:`adamw_update` returns the same trees it
 was given, now holding the new values, and a new ``step``.
+
+Sharded trees (DTensor leaves, ``launch/steps.py:train_shardings``): each
+gradient and moment is placed as its parameter is, so the update runs on
+each rank's local blocks; the global norm is that of the whole leaves (each
+leaf's sum of squares reduced over the mesh).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.models import sharding as shard_lib
 from repro_torch.models.base import tree_leaves, tree_map
 
 
@@ -37,7 +43,7 @@ class AdamWConfig:
 
 
 def adamw_init(params):
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # a DTensor's placements
     device = next(tree_leaves(params))[1].device
     return {
         "mu": tree_map(zeros, params),
@@ -48,15 +54,17 @@ def adamw_init(params):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves (sorted-key order) of each leaf's
-    float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for _, x in tree_leaves(tree)))
+    float32 sum of squares (a DTensor leaf's over its whole value)."""
+    return torch.sqrt(sum(shard_lib.replicated(torch.sum(torch.square(x.float())))
+                          for _, x in tree_leaves(tree)))
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state):
     """Returns (params, state, {"grad_norm", "lr"}): ``params`` and the
     moments updated in place (see the module docstring), ``step`` + 1."""
-    step = state["step"] + 1
+    new_step = state["step"] + 1
+    step = shard_lib.replicated(new_step)
     gnorm = global_norm(grads)
     scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm) / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
@@ -69,8 +77,14 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     flat_g = dict(tree_leaves(grads))
     flat_mu, flat_nu = dict(tree_leaves(state["mu"])), dict(tree_leaves(state["nu"]))
     for path, p in tree_leaves(params):
-        mu, nu = flat_mu[path], flat_nu[path]
-        g = flat_g[path].float() * scale  # a new tensor: the caller's gradient stays
+        mu, nu, g = flat_mu[path], flat_nu[path], flat_g[path]
+        if shard_lib.is_dtensor(p):
+            if not p.placements == mu.placements == nu.placements == g.placements:
+                raise ValueError(f"{'/'.join(path)}: parameter, moments and gradient placed "
+                                 f"apart ({p.placements}, {mu.placements}, {nu.placements}, "
+                                 f"{g.placements})")
+            p, mu, nu, g = (t.to_local() for t in (p, mu, nu, g))
+        g = g.float() * scale  # a new tensor: the caller's gradient stays
         t = (1 - b1) * g
         mu.mul_(b1).add_(t)  # b1 mu + (1 - b1) g
         torch.mul(g, 1 - b2, out=t).mul_(g)
@@ -82,5 +96,5 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
             p.sub_(t)
         else:
             p.copy_((p.float() - t).to(p.dtype))
-    new_state = {"mu": state["mu"], "nu": state["nu"], "step": step}
+    new_state = {"mu": state["mu"], "nu": state["nu"], "step": new_step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -11,8 +11,8 @@ with ``from ... import``. Both sides are read with ``ast``: nothing is
 imported, so no JAX.
 
 The only names allowed to be missing are listed below, each with the
-ROADMAP item that still queues it (LM sharding and tooling), and
-``core/compat.py``, a JAX ``shard_map`` shim with nothing to port.
+ROADMAP item that still queues it (LM tooling), and ``core/compat.py``, a
+JAX ``shard_map`` shim with nothing to port.
 """
 
 import ast
@@ -25,11 +25,9 @@ REF, PORT = os.path.join(ROOT, "src", "repro"), os.path.join(ROOT, "src", "repro
 PACKAGES = ("core", "engine", "serve", "api", "runtime", "checkpoint", "configs", "models",
             "optim", "launch")
 
-SHARDING = "ROADMAP queue 1 item 8 (LM sharding)"
 TOOLING = "ROADMAP queue 1 item 9 (LM tooling)"
 #: Modules with no counterpart, and why.
 MISSING_MODULES = {"core/compat.py": "a JAX shard_map shim (ROADMAP queue 1 item 9's note)",
-                   "models/sharding.py": SHARDING, "models/unroll.py": SHARDING,
                    "launch/dryrun.py": TOOLING}
 #: Names still queued in ROADMAP queue 1, by module.
 QUEUED = {
@@ -37,19 +35,10 @@ QUEUED = {
         "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K", "get_shape", "list_archs",
         "supports_shape")},
     "configs/base.py": {"supports_shape": TOOLING},
-    "launch/mesh.py": {"make_production_mesh": SHARDING, "mesh_num_devices": SHARDING},
-    "launch/steps.py": {"train_shardings": SHARDING, "decode_shardings": SHARDING,
-                        "prefill_shardings": SHARDING, "named": SHARDING,
-                        "abstract_opt_state": TOOLING},
-    "models/attention.py": {"cache_axes": SHARDING, "flash_sharded": SHARDING,
-                            "cache_entry_struct": TOOLING},
-    "models/base.py": {"param_partition_specs": SHARDING, "abstract_params": TOOLING},
-    "models/encdec.py": {"cache_axes_tree": SHARDING},
-    "models/model.py": {"param_partition_specs": SHARDING,
-                        "cache_partition_specs": SHARDING, "batch_partition_specs": SHARDING,
-                        "cache_axes": SHARDING, "abstract_params": TOOLING,
-                        "input_specs": TOOLING},
-    "models/transformer.py": {"cache_axes_tree": SHARDING},
+    "launch/steps.py": {"abstract_opt_state": TOOLING},
+    "models/attention.py": {"cache_entry_struct": TOOLING},
+    "models/base.py": {"abstract_params": TOOLING},
+    "models/model.py": {"abstract_params": TOOLING},
 }
 
 

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --families-only
     python3 chip_smoke.py --train-only
     python3 chip_smoke.py --shard-only
+    python3 chip_smoke.py --tooling-only
 
 The second form runs phases 1 and 3 alone on the interaction kernels of the
 checkout whose src/ directory is given (an earlier commit's, unpacked with
@@ -14,7 +15,8 @@ git archive, to time its kernels beside this one's in one call); the third
 runs phase 6 alone on that checkout's flash-attention kernels, with this
 script's cases, inputs, timers and bounds; the fourth runs phase 7b alone;
 the fifth phase 8 alone (it builds no kernel: training launches none); the
-sixth builds the flash source and runs phase 9 alone.
+sixth builds the flash source and runs phase 9 alone; the seventh builds the
+flash source and runs phase 10 alone (the train step timed there).
 
 Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
@@ -216,9 +218,19 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      against moe_ffn on each data shard, a bf16 prefill (2 launches per
      rank), again bitwise; on each rank one layer's local planes through
      the kernel and its plain version; ms per prefill, decode step and train
-     step, collectives by kind and bytes (CommDebugMode), peak memory per
+     step, collectives by kind and operand bytes (analysis/hlo.py), peak memory per
      rank, a profiled sharded prefill on rank 0 — four ranks sharing one
-     card, not a scaling figure.
+     card, not a scaling figure;
+  10. the LM tooling (DRYRUN_* and ROOFLINE_* below) — [roofline] phase
+     7's qwen2-1.5b prefill and phase 8's smollm-360m train step once more
+     on the card under analysis/hlo.py:measure_compiled (the flash kernel's
+     analytic flops added, its launches counted from 0: 28), measured flops
+     against model_flops, useful_flops_fraction, the median ms and
+     mfu = model_flops / (989e12 x t), with the card's name and power limit;
+     then [dryrun] repro_torch.launch.dryrun in two subprocesses at once,
+     each within its wall limit: qwen2-1.5b's prefill_32k cell on a fake
+     16 x 16 world (--quick; meta tensors) and the md-mini epidemic day on
+     256 fake workers, each record's headline.
 
 The line before the last is the kernels' JSON record (``launches``: phase
 4d's; flash's ``launches`` phase 7's, ``family_launches`` phase 7b's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
@@ -226,7 +238,8 @@ phase 4g (a)-(d)'s, ``mesh_served_launches``: phase 4g (e)'s mixes and
 ``shrink_launches``: phase 4h (a)-(b)'s, each summed over its ranks;
 ``eager_launches``: phase 4i's run_eager; ``train_launches``: phase 8's,
 and for flash ``train_flash_launches``, its attn_impl=flash run's, and
-``shard_launches``, phase 9's per rank, by run); the
+``shard_launches``, phase 9's per rank, by run, and
+``roofline_launches``, phase 10's measured prefill's); the
 last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the reference
 package ``repro``.
@@ -1450,8 +1463,9 @@ def _same_trees(a, b) -> bool:
         x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
 
 
-def train_smollm(fk, card: str) -> int:
-    """Phase 8 (b); returns the flash launches of the attn_impl=flash run."""
+def train_smollm(fk, card: str) -> tuple:
+    """Phase 8 (b); returns the flash launches of the attn_impl=flash run and
+    the median ms of a step."""
     import shutil
     import tempfile
 
@@ -1547,7 +1561,7 @@ def train_smollm(fk, card: str) -> int:
     log(f"{label} attn_impl=flash: {TRAIN_FLASH_STEPS} steps, {n} flash launches, losses "
         f"bitwise attn_impl=chunked's ({[v for _, v in runs['flash'][0]]})")
     torch.cuda.empty_cache()
-    return n
+    return n, ms
 
 
 def train_family(arch: str, layers, seq: int, card: str) -> dict:
@@ -1603,12 +1617,13 @@ def train_phase(fk, card: str) -> dict:
     for w in counted.values():
         w.launches = 0
     train_card_vs_cpu(card)
-    flash_n = train_smollm(fk, card)
+    flash_n, smollm_ms = train_smollm(fk, card)
     fam = {arch: train_family(arch, layers, seq, card) for arch, layers, seq in TRAIN_FAMILIES}
     launches = {k: w.launches for k, w in counted.items()}
     if any(launches.values()):
         raise AssertionError(f"[train] kernel launches in phase 8: {launches}")
-    return {"launches": launches, "flash_launches": flash_n, "families": fam}
+    return {"launches": launches, "flash_launches": flash_n, "families": fam,
+            "smollm_ms": smollm_ms}
 
 
 def train_only() -> int:
@@ -1701,29 +1716,15 @@ def _drawn_placed(cfg, seed: int, shardings, keep_full: bool, mtp: int = 0):
 
 
 def _comm_stats(fn):
-    """fn() under CommDebugMode (collectives by kind) and a dispatch mode
-    that adds up the bytes each functional collective takes in; returns
-    (fn's result, {kind: count}, {kind: bytes})."""
-    from torch.distributed.tensor.debug import CommDebugMode
-    from torch.utils._python_dispatch import TorchDispatchMode
+    """fn() with its collectives counted on this rank by
+    analysis/hlo.py:collective_bytes (per kind: calls and operand bytes, an
+    all-gather's input shard, a reduce-scatter's whole input); returns (fn's
+    result, {kind: count}, {kind: bytes})."""
+    from repro_torch.analysis.hlo import collective_bytes
 
-    sent: dict = {}
-
-    class Bytes(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = func.__name__.split(".")[0]
-            if func.namespace == "_c10d_functional" and name != "wait_tensor" \
-                    and not name.startswith("_"):
-                n = sum(a.numel() * a.element_size() for a in args
-                        if isinstance(a, torch.Tensor))
-                sent[name] = sent.get(name, 0) + n
-            return func(*args, **(kwargs or {}))
-
-    comm = CommDebugMode()
-    with comm, Bytes():
-        out = fn()
-    counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
-    return out, counts, sent
+    box = []
+    coll = collective_bytes(lambda: box.append(fn()))
+    return box[0], coll["count"], coll["bytes"]
 
 
 def _flash_vs_plain(fk, q, k, v, kw) -> float:
@@ -1914,8 +1915,8 @@ def _shard_serve(mesh, fk, say, card) -> dict:
             f"|d| {out['bf16_err']:.3g}")
         say(f"{label} four ranks sharing one card (not a scaling figure): sharded prefill "
             f"{out['prefill_ms']:.1f} ms (first {ms_first:.1f} ms), decode "
-            f"{out['decode_ms']:.2f} ms per step; collectives per prefill {pcounts}, bytes "
-            f"in {pbytes}; per decode step {dcounts}, bytes in {dbytes}; {card}")
+            f"{out['decode_ms']:.2f} ms per step; collectives per prefill {pcounts}, operand "
+            f"bytes {pbytes}; per decode step {dcounts}, operand bytes {dbytes}; {card}")
     del params, cache, lg
     return out
 
@@ -2016,7 +2017,7 @@ def _shard_train(mesh, fk, say, card) -> dict:
             f"the first step again from the same start bitwise (loss, parameters and "
             f"moments on every rank); {out['launches']} flash launches; four ranks sharing "
             f"one card (not a scaling figure): median step {out['step_ms']:.1f} ms; "
-            f"collectives per step {counts}, bytes in {sent}; {card}")
+            f"collectives per step {counts}, operand bytes {sent}; {card}")
     del p, o, params, full, batches
     return out
 
@@ -2101,7 +2102,7 @@ def _shard_moe(mesh, fk, say, card) -> dict:
     if rank == 0:
         say(f"{label} bf16 prefill B={B} S={S}: {n} flash launches on rank 0, a second "
             f"prefill bitwise; four ranks sharing one card (not a scaling figure): "
-            f"{out['prefill_ms']:.1f} ms; collectives per prefill {counts}, bytes in {sent}; "
+            f"{out['prefill_ms']:.1f} ms; collectives per prefill {counts}, operand bytes {sent}; "
             f"{card}")
     del params, full, lg, lg2
     return out
@@ -2200,6 +2201,224 @@ def shard_only() -> int:
     stamp("end")
     log(card)
     log(json.dumps({"shard": rec}))
+    return 0
+
+
+# Phase 10: the LM tooling. [dryrun] two dry runs of launch/dryrun.py, each
+# in a subprocess of its own (a fake world of 256 ranks in one process, which
+# must never meet phase 9's gloo ranks), both at once after the roofline's
+# card work, each within its wall limit: qwen2-1.5b's prefill_32k cell on the
+# 16 x 16 mesh (--quick: meta tensors, no card) and the md-mini epidemic day
+# on 256 fake workers (the host's CPU). [roofline] phase 7's qwen2-1.5b
+# prefill (8 x 512, bf16, flash)
+# and phase 8's smollm-360m train step (8 x 256, bf16) once more on the card
+# under analysis/hlo.py:measure_compiled; the flash kernel is a ctypes launch
+# the dispatcher does not see, so its analytic flops are added, as the dry
+# run does. mfu = model_flops / (PEAK_FLOPS_BF16 * t), t the median of
+# ROOFLINE_REPS timed prefills here (CUDA events) and phase 8's median step.
+DRYRUN_RUNS = (("qwen2-1.5b prefill_32k 16x16", ["--arch", SERVE_ARCH, "--shape", "prefill_32k",
+                                                "--quick"]),
+               ("md-mini epidemic, 256 workers", ["--epidemic", DATASET]))
+DRYRUN_WALL_S = 240.0
+ROOFLINE_REPS = 5
+
+
+def start_dryruns(out_dir: str) -> list:
+    """Phase 10's dry runs, started at once: [(label, process, start time)]."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    return [(label, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out", out_dir],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        time.perf_counter()) for label, argv in DRYRUN_RUNS]
+
+
+def collect_dryruns(jobs: list, out_dir: str) -> dict:
+    """Wait for each dry run within DRYRUN_WALL_S of its start (killing it
+    past that), print its headline; a failure or an overrun is fatal."""
+    out = {}
+    for label, proc, t0 in jobs:
+        try:
+            text, _ = proc.communicate(timeout=max(1.0, DRYRUN_WALL_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"[dryrun] {label}: over its {DRYRUN_WALL_S:.0f} s wall limit")
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[dryrun] {label}: exit {proc.returncode}:\n{text[-4000:]}")
+        if "epidemic" in label:
+            with open(os.path.join(out_dir, f"epidemic_{DATASET}_256w.json")) as f:
+                rec = json.load(f)
+            coll = rec["measured"]["collectives"]
+            log(f"[dryrun] {label}: ok, {rec['pop']['people']} people; plan + tables "
+                f"{rec['build_s']} s, one day {rec['day_s']} s ({rec['day']}); per rank: "
+                f"collectives {json.dumps(coll['count'], sort_keys=True)}, operand bytes "
+                f"{json.dumps(coll['bytes'], sort_keys=True)}, bytes moved "
+                f"{rec['measured']['bytes_accessed']:.4g}, tables {rec['bytes']['tables']} B, "
+                f"plan (all workers) {rec['bytes']['plan_all_workers']} B; wall {wall:.1f} s")
+        else:
+            with open(os.path.join(out_dir, f"{SERVE_ARCH}_prefill_32k_16x16.json")) as f:
+                rec = json.load(f)
+            if "error" in rec or "skipped" in rec:
+                raise AssertionError(f"[dryrun] {label}: {rec.get('error', rec.get('skipped'))}")
+            r = rec["roofline"]
+            log(f"[dryrun] {label}: ok, flops/chip {rec['scanned']['flops']:.4g}, bytes/chip "
+                f"{rec['scanned']['bytes_accessed']:.4g}, collective bytes/chip "
+                f"{rec['scanned']['collectives']['total_bytes']}, temp "
+                f"{rec['scanned']['memory']['temp_bytes'] / 2**30:.2f} GiB, bottleneck "
+                f"{r['bottleneck']}, roofline fraction {r['roofline_fraction']:.4g}, useful "
+                f"{r['useful_flops_fraction']:.4g}; build {rec['lower_s']} s, run "
+                f"{rec['compile_s']} s; wall {wall:.1f} s")
+        out[label] = round(wall, 2)
+    return out
+
+
+def _roofline_line(label, meas, add, mf, ms, card) -> dict:
+    """Print one card step's measurement against the H100 roofline."""
+    from repro_torch.analysis import roofline as rf
+
+    flops = meas["flops"] + add
+    terms = rf.RooflineTerms(flops, meas["bytes_accessed"], meas["collectives"]["total_bytes"],
+                             mf, 1)
+    mfu = mf / (rf.PEAK_FLOPS_BF16 * ms * 1e-3)
+    log(f"[roofline] {label}: measured flops {flops:.6g} (dispatched {meas['flops']:.6g} + "
+        f"flash analytic {add:.6g}), model_flops {mf:.6g}, useful_flops_fraction "
+        f"{terms.useful_flops_fraction:.4f}; bytes moved (unfused ops) "
+        f"{meas['bytes_accessed']:.6g}, transcendentals {meas['transcendentals']:.4g}, peak "
+        f"live intermediates {meas['memory']['temp_bytes'] / 2**30:.2f} GiB; roofline terms "
+        f"compute {terms.t_compute * 1e3:.3f} ms, memory {terms.t_memory * 1e3:.3f} ms "
+        f"({terms.bottleneck}-bound); median {ms:.3f} ms; mfu {mfu:.4f} "
+        f"(model flops / (989e12 x t)); {card}")
+    return {"flops": flops, "model_flops": mf, "useful_flops_fraction":
+            terms.useful_flops_fraction, "ms": ms, "mfu": mfu, "bound_ms": terms.t_bound * 1e3}
+
+
+def roofline_phase(fk, card: str, train_ms=None) -> dict:
+    """Phase 10 [roofline]; returns the flash launches of its measured
+    prefill and the two steps' numbers. ``train_ms``: phase 8's median step
+    (None: time ROOFLINE_REPS steps here, by the host's clock after a
+    synchronise, as phase 8 does)."""
+    import dataclasses
+
+    from repro_torch.analysis import roofline as rf
+    from repro_torch.analysis.hlo import measure_compiled
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    out = {}
+    # qwen2-1.5b prefill: phase 7's model, batch and prompt
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), compute_dtype="bfloat16",
+                              attn_impl="flash")
+    # detlint: ignore[DET001] — random model weights from a seed, as phase 7's
+    params = M.prepare(cfg, M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                          "cuda"))
+    tokens = torch.as_tensor(TokenPipeline(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH, 0)
+                             .batch(0), device="cuda").long()
+    prefill = torch.no_grad()(lambda: M.forward_prefill(cfg, params, {"tokens": tokens}))
+    prefill()
+    torch.cuda.synchronize()
+    fk.flash_attention_bhsd_cuda.launches = 0
+    meas = measure_compiled(prefill)
+    torch.cuda.synchronize()
+    launches = fk.flash_attention_bhsd_cuda.launches
+    if launches != cfg.num_layers:
+        raise AssertionError(f"[roofline] {launches} flash launches in the measured prefill, "
+                             f"expected {cfg.num_layers}")
+    times = []
+    for _ in range(ROOFLINE_REPS):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        prefill()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    shape = ShapeConfig("serve_prefill", "prefill", SERVE_PROMPT, SERVE_BATCH)
+    n, na = M.param_count(cfg), M.param_count(cfg, active_only=True)
+    out["prefill"] = _roofline_line(
+        f"{SERVE_ARCH} prefill {SERVE_BATCH} x {SERVE_PROMPT} bf16 flash ({launches} kernel "
+        f"launches)", meas, rf.analytic_attention_flops(cfg, shape),
+        rf.model_flops(cfg, shape, n, na), float(np.median(times)), card)
+    out["prefill"]["times_ms"] = [round(t, 3) for t in times]
+    del params, prefill
+    torch.cuda.empty_cache()
+    # smollm-360m train step: phase 8's model, batch and optimiser
+    args = T.parse_args(["--arch", TRAIN_ARCH, "--preset", "full", "--batch", str(TRAIN_BATCH),
+                         "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR)])
+    tcfg = T.build_cfg(args)
+    # detlint: ignore[DET001] — launch/train.py's seeded draw, as phase 8's
+    params = M.init_params(tcfg, torch.Generator(device="cuda").manual_seed(args.seed), "cuda",
+                           max_target_positions=TRAIN_SEQ + 8)
+    opt = adamw_init(params)
+    step = make_train_step(tcfg, AdamWConfig(lr=TRAIN_LR))
+    batch = T.make_batch(tcfg, TokenPipeline(tcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, args.seed),
+                         0, "cuda")
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    meas = measure_compiled(step, params, opt, batch)
+    torch.cuda.synchronize()
+    from_phase8 = train_ms is not None
+    if train_ms is None:  # --tooling-only: no phase 8, so time steps here
+        times = []
+        for _ in range(ROOFLINE_REPS):
+            t0 = time.perf_counter()
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        train_ms = float(np.median(times))
+    shape = ShapeConfig("train_step", "train", TRAIN_SEQ, TRAIN_BATCH)
+    n, na = M.param_count(tcfg), M.param_count(tcfg, active_only=True)
+    out["train"] = _roofline_line(
+        f"{TRAIN_ARCH} train step {TRAIN_BATCH} x {TRAIN_SEQ} {tcfg.compute_dtype} ("
+        f"{'phase 8' if from_phase8 else 'phase 10'}'s median step)", meas, 0.0, rf.model_flops(tcfg, shape, n, na), train_ms, card)
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"launches": launches, **out}
+
+
+def tooling_phase(fk, card: str, train_ms=None) -> dict:
+    """Phase 10: the roofline on the card, then the two dry runs at once in
+    subprocesses (after the card's timed steps: their host work beside a
+    prefill slowed it from 36 to 47 ms)."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="dryrun-", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    roof = roofline_phase(fk, card, train_ms)
+    jobs = start_dryruns(out_dir)
+    try:
+        walls = collect_dryruns(jobs, out_dir)
+    finally:
+        for _, proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[tooling] phase 10 wall {time.perf_counter() - t0:.1f} s (dry runs {walls})")
+    return {"dryrun_wall_s": walls, **roof}
+
+
+def tooling_only() -> int:
+    """Phases 1, 2 (the flash source alone) and 10 (the train step timed
+    here, not by phase 8)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    card = card_line()
+    log(f"[device] {card}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}")
+    stamp("build")
+    log_flash_build(fk.build()[1], fk)
+    stamp("phase 10")
+    rec = tooling_phase(fk, card)
+    stamp("end")
+    log(card)
+    log(json.dumps({"tooling": rec}))
     return 0
 
 
@@ -3904,9 +4123,12 @@ def main() -> int:
         return train_only()
     if sys.argv[1:] == ["--shard-only"]:
         return shard_only()
+    if sys.argv[1:] == ["--tooling-only"]:
+        return tooling_only()
     if len(sys.argv) != 1:
         print("usage: chip_smoke.py [--interactions-only SRC_DIR | --flash-only SRC_DIR | "
-              "--families-only | --train-only | --shard-only]", file=sys.stderr)
+              "--families-only | --train-only | --shard-only | --tooling-only]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import INTERVENTION_PRESETS, get_epidemic
@@ -4119,6 +4341,10 @@ def main() -> int:
     stamp("phase 9")
     shard = shard_phase(card, shard_job)
 
+    # ---- phase 10: the LM tooling: dry runs and the H100 roofline -------------
+    stamp("phase 10")
+    tooling = tooling_phase(flash_kernel, card, train["smollm_ms"])
+
     stamp("end")
     log(card)
     line = []
@@ -4155,6 +4381,7 @@ def main() -> int:
         "train_launches": train["launches"]["flash_attention"],
         "train_flash_launches": train["flash_launches"],
         "shard_launches": shard["launches"],
+        "roofline_launches": tooling["launches"],
         **flash_rec,
     })
     log(json.dumps({"kernels": line}))

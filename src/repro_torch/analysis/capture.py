@@ -9,7 +9,8 @@ record — so the sentinel watches a runner's count of builds
 (:meth:`DayRunner.cache_size`). ``hlo.py``'s other level-2 helpers
 (``find_f64``, ``assert_no_f64``, ``collective_count``) are
 :mod:`repro_torch.analysis.dispatch`; its HLO readers (``collective_bytes``,
-``measure_compiled``) serve the LM tooling (ROADMAP queue 1 item 9).
+``measure_compiled``) are :mod:`repro_torch.analysis.hlo`, which reads what
+a function dispatches.
 """
 
 from __future__ import annotations

@@ -1,21 +1,93 @@
-"""Scenario-sweep summary tables (the reference's ``repro.analysis.report``,
-its sweep part): per-scenario summary rows from a history or a RunResult's
-observables, and their markdown tables, used by ``launch/sweep.py``.
+"""Dry-run and roofline tables from ``artifacts/dryrun/*.json``, plus the
+scenario-sweep summary tables used by ``launch/sweep.py`` (the reference's
+``repro.analysis.report``; its tables print the same text from the same
+records, so either package's dry-run artifacts render here).
 
+    python -m repro_torch.analysis.report [--dir artifacts/dryrun] \
+        [--section all|dryrun|roofline]
     python -m repro_torch.analysis.report --result run.json
 
-renders a saved RunResult (``RunResult.save``, or the sweep CLI's
-``--out``): its sweep table and its mean/CI band table. The reference's
-``--section dryrun|roofline`` tables belong to the LM tooling, which the
-port does not have yet (ROADMAP queue 1 item 9).
+The first renders ``launch/dryrun.py``'s records; the second a saved
+RunResult (``RunResult.save``, or the sweep CLI's ``--out``): its sweep
+table and its mean/CI band table.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import json
+import os
 import sys
 
 import numpy as np
+
+
+def load(dir_, pattern):
+    out = []
+    for p in sorted(glob.glob(os.path.join(dir_, pattern))):
+        with open(p) as f:
+            out.append((os.path.basename(p)[:-5], json.load(f)))
+    return out
+
+
+def fmt_bytes(b):
+    return f"{b/2**30:.1f}G" if b > 2**28 else f"{b/2**20:.0f}M"
+
+
+def dryrun_table(dir_):
+    print("\n### Dry-run status (compile proof per cell)\n")
+    print("| arch | shape | 16x16 | 2x16x16 | compile s (1-pod) |")
+    print("|---|---|---|---|---|")
+    single = {k.replace("_16x16", ""): v for k, v in load(dir_, "*_16x16.json")}
+    multi = {k.replace("_2x16x16", ""): v for k, v in load(dir_, "*_2x16x16.json")}
+    for key in sorted(single):
+        if key.endswith(("_chunked", "_opt", "_capdata", "_capdata2", "_flash",
+                         "_smdisp", "_opt1", "_opt2", "_final")):
+            continue
+        s, m = single[key], multi.get(key)
+        stat = lambda r: ("skip" if r and "skipped" in r
+                          else "FAIL" if r is None or "error" in r else "ok")
+        cs = s.get("compile_s", "-")
+        print(f"| {s.get('arch')} | {s.get('shape')} | {stat(s)} | {stat(m)} | {cs} |")
+
+
+def roofline_table(dir_, suffix="_16x16"):
+    print("\n### Roofline baseline (single pod, 256 chips; seconds per step)\n")
+    print("| arch | shape | t_compute | t_memory | t_collective | bottleneck | useful | roofline frac |")
+    print("|---|---|---|---|---|---|---|---|")
+    for key, r in load(dir_, f"*{suffix}.json"):
+        if "roofline" not in r:
+            continue
+        rf = r["roofline"]
+        print(
+            f"| {r['arch']} | {r['shape']} | {rf['t_compute_s']:.4f} | "
+            f"{rf['t_memory_s']:.4f} | {rf['t_collective_s']:.4f} | "
+            f"{rf['bottleneck']} | {rf['useful_flops_fraction']:.3f} | "
+            f"{rf['roofline_fraction']:.4f} |"
+        )
+
+
+def compare(dir_, base, opts):
+    print(f"\n#### {base}")
+    print("| variant | t_compute | t_memory | t_collective | temp mem | roofline frac |")
+    print("|---|---|---|---|---|---|")
+    for name, path in [("baseline", base)] + opts:
+        try:
+            with open(os.path.join(dir_, path + ".json")) as f:
+                r = json.load(f)
+        except FileNotFoundError:
+            continue
+        if "roofline" not in r:
+            print(f"| {name} | - | - | - | - | ERROR |")
+            continue
+        rf = r["roofline"]
+        tb = r["scanned"]["memory"].get("temp_bytes", 0)
+        print(
+            f"| {name} | {rf['t_compute_s']:.3f} | {rf['t_memory_s']:.3f} | "
+            f"{rf['t_collective_s']:.3f} | {fmt_bytes(tb)} | "
+            f"{rf['roofline_fraction']:.4f} |"
+        )
 
 
 def summarize_sweep(hist, names, num_people):
@@ -118,10 +190,11 @@ def main(argv=None) -> int:
         print()
         mean_ci_table(result, every=max(1, result.days // 20))
         return 0
-    print(f"report: --section {args.section} renders the LM tooling's dry-run and "
-          "roofline tables, which the port does not have yet (ROADMAP queue 1 item 9); "
-          "pass --result run.json to render a RunResult", file=sys.stderr)
-    return 2
+    if args.section in ("all", "dryrun"):
+        dryrun_table(args.dir)
+    if args.section in ("all", "roofline"):
+        roofline_table(args.dir)
+    return 0
 
 
 if __name__ == "__main__":

@@ -5,10 +5,15 @@ from __future__ import annotations
 
 from repro_torch.configs.archs import ARCHS, reduced_config  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
+    DECODE_32K,
     EpidemicConfig,
     LM_SHAPES,
+    LONG_500K,
     ModelConfig,
+    PREFILL_32K,
     ShapeConfig,
+    TRAIN_4K,
+    supports_shape,
 )
 from repro_torch.configs.epidemics import EPIDEMICS  # noqa: F401
 from repro_torch.configs.presets import (  # noqa: F401
@@ -24,7 +29,18 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
+def get_shape(name: str) -> ShapeConfig:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
 def get_epidemic(name: str) -> EpidemicConfig:
     if name not in EPIDEMICS:
         raise KeyError(f"unknown epidemic dataset '{name}'; have {sorted(EPIDEMICS)}")
     return EPIDEMICS[name]
+
+
+def list_archs() -> list[str]:
+    return sorted(ARCHS)

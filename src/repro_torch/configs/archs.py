@@ -2,8 +2,9 @@
 (``repro/configs/archs.py``, field for field), plus ``reduced_config`` for
 CPU tests.
 
-Each entry cites its source. The port serves every family
-(``models/model.py``); training waits (ROADMAP queue 1 item 7).
+Each entry cites its source. The port serves and trains every family
+(``models/model.py``, ``launch/{serve,train}.py``), shards it on a
+``DeviceMesh`` and dry-runs every arch x shape cell (``launch/dryrun.py``).
 """
 
 from __future__ import annotations

@@ -102,6 +102,13 @@ LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
 LM_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether this (arch, shape) cell runs, and why not if skipped."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: 500k decode skipped per assignment"
+    return True, ""
+
+
 @dataclasses.dataclass(frozen=True)
 class EpidemicConfig:
     name: str

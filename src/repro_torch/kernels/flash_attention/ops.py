@@ -7,7 +7,11 @@ head axis (the kernel reads key/value head bh // G in place, so K and V are
 not repeated), and returns (B, Sq, M*G, Dh) with head h = m*G + g.
 
 CUDA tensors launch the kernel (or raise); CPU tensors run its plain
-version. Nothing else: no fall back from one to the other.
+version. Nothing else: no fall back from one to the other. ``meta``
+tensors (the dry run, ``launch/dryrun.py``) compute nothing: they get an
+empty output of the kernel's shape and dtype, and no flops are counted for
+it (the dry run adds the reference's analytic attention count instead;
+the plain version would score all Sq x Sk pairs, twice a causal count).
 
 The kernel computes the forward only, as the reference's Pallas kernel
 does: where grad mode is on and an input requires grad, the call raises
@@ -42,6 +46,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     elif q.device.type == "cpu":
         out = kernel.flash_attention_bhsd_plain(qf, kf, vf, causal=causal,
                                                 window=window, scale=scale)
+    elif q.device.type == "meta":  # shapes only: nothing runs on meta
+        kernel.check_inputs(qf, kf, vf, window)
+        out = torch.empty_like(qf)
     else:
-        raise ValueError(f"flash attention runs on CUDA or the CPU, not {q.device}")
+        raise ValueError(f"flash attention runs on CUDA, the CPU or meta, not {q.device}")
     return out.reshape(B, M, G, Sq, Dh).permute(0, 3, 1, 2, 4).reshape(B, Sq, M * G, Dh)

@@ -15,7 +15,7 @@ from repro_torch.models import model as M
 from repro_torch.models import sharding as shard_lib
 from repro_torch.models.base import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models.sharding import NamedSharding, PartitionSpec as P
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch, rules=None):
@@ -121,3 +121,10 @@ def place(tree, shardings):
     if isinstance(tree, dict):
         return {k: place(v, shardings[k]) for k, v in tree.items()}
     raise TypeError(f"no sharding for a leaf of type {type(tree).__name__}")
+
+
+def abstract_opt_state(params_abs):
+    """:func:`adamw_init` of abstract (``meta``) parameters: float32 ``mu``
+    and ``nu`` of their shapes and a scalar int32 ``step``, on ``meta`` (the
+    reference's ``jax.eval_shape(adamw_init, ...)``)."""
+    return adamw_init(params_abs)

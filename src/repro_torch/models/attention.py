@@ -240,6 +240,11 @@ def init_cache_entry(cfg, batch: int, alloc: int, *, device, dtype=torch.bfloat1
     }
 
 
+def cache_entry_struct(cfg, batch: int, alloc: int, dtype=torch.bfloat16):
+    """:func:`init_cache_entry`'s shapes and dtype as ``meta`` tensors."""
+    return init_cache_entry(cfg, batch, alloc, device="meta", dtype=dtype)
+
+
 def cache_axes():
     return ("batch", "kv_heads", "cache_seq", "head_dim")
 

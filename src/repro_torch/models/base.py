@@ -4,8 +4,9 @@ Each model family declares its parameters once as a tree (nested dicts) of
 ``ParamSpec`` (shape + logical axes + init rule), as the reference's
 ``repro/models/base.py`` does. From it the port derives the concrete
 parameters, a plain dict tree of tensors under the reference's names and
-shapes, the parameter count and, through ``models/sharding.py``'s rules,
-each parameter's partition spec.
+shapes, their abstract (``meta``) view for the dry run, the parameter count
+and, through ``models/sharding.py``'s rules, each parameter's partition
+spec.
 
 Initialisation follows the reference's per-spec rule but draws from an
 explicit ``torch.Generator``, so its values differ from ``jax.random``'s;
@@ -93,6 +94,13 @@ def init_params(spec_tree, generator: torch.Generator, device):
             node = node.setdefault(k, {})
         node[path[-1]] = _init_one(spec, generator, device)
     return out
+
+
+def abstract_params(spec_tree):
+    """The parameters' shapes and dtypes without storage: a ``meta`` tensor
+    for every ``ParamSpec`` (the reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=getattr(torch, s.dtype),
+                                          device="meta"), spec_tree)
 
 
 def param_partition_specs(spec_tree, rules):

@@ -47,6 +47,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device,
     return base_lib.init_params(model_specs(cfg, max_target_positions), generator, device)
 
 
+def abstract_params(cfg: ModelConfig, max_target_positions: int = 0):
+    """:func:`init_params`' shapes and dtypes as ``meta`` tensors."""
+    return base_lib.abstract_params(model_specs(cfg, max_target_positions))
+
+
 def param_partition_specs(cfg: ModelConfig, rules, max_target_positions: int = 0):
     return base_lib.param_partition_specs(model_specs(cfg, max_target_positions), rules)
 

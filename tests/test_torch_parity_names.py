@@ -1,18 +1,18 @@
-"""Every top-level name of the reference's epidemic side and of its models
-has a counterpart in the port.
+"""Every top-level name of the reference's epidemic side, of its models and
+of its LM tooling has a counterpart in the port.
 
 For each module of ``repro`` under ``core/``, ``engine/``, ``serve/``,
 ``api/``, ``runtime/``, ``checkpoint/``, ``configs/``, ``models/``,
-``optim/`` and ``launch/``, the
+``optim/``, ``launch/`` and ``analysis/``, the
 module of the same path in ``repro_torch`` must define every public
 top-level name the reference's defines: functions, classes and assigned
 constants, and in a package's ``__init__.py`` also the names it re-exports
 with ``from ... import``. Both sides are read with ``ast``: nothing is
 imported, so no JAX.
 
-The only names allowed to be missing are listed below, each with the
-ROADMAP item that still queues it (LM tooling), and ``core/compat.py``, a
-JAX ``shard_map`` shim with nothing to port.
+A name that the port keeps in another module is listed in ``MOVED`` with
+that module, which must define it. The only module allowed to be missing is
+``core/compat.py``, a JAX ``shard_map`` shim with nothing to port.
 """
 
 import ast
@@ -23,22 +23,19 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF, PORT = os.path.join(ROOT, "src", "repro"), os.path.join(ROOT, "src", "repro_torch")
 PACKAGES = ("core", "engine", "serve", "api", "runtime", "checkpoint", "configs", "models",
-            "optim", "launch")
+            "optim", "launch", "analysis")
 
-TOOLING = "ROADMAP queue 1 item 9 (LM tooling)"
 #: Modules with no counterpart, and why.
-MISSING_MODULES = {"core/compat.py": "a JAX shard_map shim (ROADMAP queue 1 item 9's note)",
-                   "launch/dryrun.py": TOOLING}
-#: Names still queued in ROADMAP queue 1, by module.
-QUEUED = {
-    "configs/__init__.py": {n: TOOLING for n in (
-        "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K", "get_shape", "list_archs",
-        "supports_shape")},
-    "configs/base.py": {"supports_shape": TOOLING},
-    "launch/steps.py": {"abstract_opt_state": TOOLING},
-    "models/attention.py": {"cache_entry_struct": TOOLING},
-    "models/base.py": {"abstract_params": TOOLING},
-    "models/model.py": {"abstract_params": TOOLING},
+MISSING_MODULES = {"core/compat.py": "a JAX shard_map shim (ROADMAP queue 1 item 9's note)"}
+#: Names still queued in ROADMAP queue 1, by module (none: the port is whole).
+QUEUED: dict = {}
+#: Names the port defines in another module than the reference's, by
+#: reference module: {name: the port's module}.
+MOVED = {
+    "analysis/hlo.py": {"find_f64": "analysis/dispatch.py",
+                        "assert_no_f64": "analysis/dispatch.py",
+                        "collective_count": "analysis/dispatch.py",
+                        "recompile_sentinel": "analysis/capture.py"},
 }
 
 
@@ -74,7 +71,10 @@ def test_port_has_every_reference_name(module):
         return
     assert os.path.exists(port), f"the port has no {module}"
     queued = QUEUED.get(module, {})
-    missing = _names(os.path.join(REF, module)) - _names(port)
+    moved = MOVED.get(module, {})
+    for name, where in moved.items():
+        assert name in _names(os.path.join(PORT, where)), f"{module}:{name} is not in {where}"
+    missing = _names(os.path.join(REF, module)) - _names(port) - set(moved)
     assert missing <= set(queued), \
         f"{module}: no counterpart for {sorted(missing - set(queued))}"
     # an allowed name that the port now has must leave the allow-list

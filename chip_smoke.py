@@ -230,7 +230,10 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      then [dryrun] repro_torch.launch.dryrun in two subprocesses at once,
      each within its wall limit: qwen2-1.5b's prefill_32k cell on a fake
      16 x 16 world (--quick; meta tensors) and the md-mini epidemic day on
-     256 fake workers, each record's headline.
+     256 fake workers, each record's headline; beside them [dryrun:3d]
+     whisper-base's encoder self-attention forward and backward on meta
+     DTensors on a fake 2 x 16 x 16 world, in this process (the op of the
+     train_4k cell whose backward failed before; seconds, fatal).
 
 The line before the last is the kernels' JSON record (``launches``: phase
 4d's; flash's ``launches`` phase 7's, ``family_launches`` phase 7b's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
@@ -2379,10 +2382,75 @@ def roofline_phase(fk, card: str, train_ms=None) -> dict:
     return {"launches": launches, **out}
 
 
+# [dryrun:3d] the op of the 2 x 16 x 16 whisper-base train_4k cell whose
+# backward viewed a non-contiguous gradient block, alone: the encoder
+# self-attention (models/encdec.py:_mha) forward and backward on meta
+# DTensors placed by the train step's shardings, as rank 0 of a fake 512-rank
+# world in this process (which holds no process group), the output's gradient
+# placed as the encoder layer's backward gives it (batch over pod and data, a
+# partial sum over model). The whole cell takes ten minutes on a host; this
+# takes seconds, beside the two dry-run subprocesses.
+DRYRUN_3D_ARCH = "whisper-base"
+
+
+def dryrun_3d_check() -> dict:
+    """Phase 10 [dryrun:3d]; fatal on failure."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import encdec, sharding
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import layer_list
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(DRYRUN_3D_ARCH), enc_layers=1)
+    shape = get_shape("train_4k")
+    mtp = shape.seq_len + 8
+    with dryrun.fake_world(512):
+        mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+        rules = sharding.MeshRules.for_mesh(mesh)
+        p_s, _, b_s = steps.train_shardings(cfg, shape, rules, mesh, mtp)[0]
+        layers = steps.place(M.abstract_params(cfg, mtp)["enc_layers"], p_s["enc_layers"])
+        x = steps.place(M.input_specs(cfg, shape)["frames"], b_s["frames"]).requires_grad_()
+        leaves = {k: v.detach().requires_grad_() for k, v in layers.items()}
+        try:
+            with torch.enable_grad(), sharding.replicate_plain():
+                out = encdec._mha(x, x, layer_list(M.cast_params(cfg, leaves))[0], cfg,
+                                  train=True, rules=rules)
+                local = (x.shape[0] // (mesh.size(0) * mesh.size(1)), *x.shape[1:])
+                g_out = DTensor.from_local(
+                    torch.empty(local, dtype=out.dtype, device="meta"), mesh,
+                    (Shard(0), Shard(0), Partial()), shape=out.shape, stride=out.stride(),
+                    run_check=False)
+                grads = torch.autograd.grad(out, [x, *leaves.values()], g_out,
+                                            allow_unused=True)
+        except RuntimeError as e:
+            raise AssertionError(f"[dryrun:3d] {DRYRUN_3D_ARCH} encoder self-attention on "
+                                 f"2 x 16 x 16: {e!r}") from e
+        got = dict(zip(["frames", *leaves], grads))
+        if got["frames"].shape != x.shape or any(
+                got[k] is None or got[k].shape != leaves[k].shape
+                for k in ("wq", "wk", "wv", "wo")):
+            raise AssertionError("[dryrun:3d] a gradient is missing or misshapen")
+        rec = {"frames_local": list(x.to_local().shape),
+               "grad_placements": str(tuple(got["frames"].placements)),
+               "dropped": len(rules.dropped), "s": round(time.perf_counter() - t0, 2)}
+    log(f"[dryrun:3d] {DRYRUN_3D_ARCH} train_4k encoder self-attention, forward and backward "
+        f"on meta DTensors, rank 0 of a fake 2 x 16 x 16 world: frames {tuple(x.shape)}, local "
+        f"{tuple(rec['frames_local'])} placed {tuple(x.placements)}, output gradient placed "
+        f"(S(0), S(0), P), frames' gradient {rec['grad_placements']}; guard events "
+        f"{rec['dropped']}; ok in {rec['s']} s on the host (torch {torch.__version__})")
+    return rec
+
+
 def tooling_phase(fk, card: str, train_ms=None) -> dict:
     """Phase 10: the roofline on the card, then the two dry runs at once in
     subprocesses (after the card's timed steps: their host work beside a
-    prefill slowed it from 36 to 47 ms)."""
+    prefill slowed it from 36 to 47 ms), and beside them the 3-D check."""
     import shutil
     import tempfile
 
@@ -2392,6 +2460,7 @@ def tooling_phase(fk, card: str, train_ms=None) -> dict:
     roof = roofline_phase(fk, card, train_ms)
     jobs = start_dryruns(out_dir)
     try:
+        check_3d = dryrun_3d_check()
         walls = collect_dryruns(jobs, out_dir)
     finally:
         for _, proc, _ in jobs:
@@ -2400,7 +2469,7 @@ def tooling_phase(fk, card: str, train_ms=None) -> dict:
                 proc.communicate()
         shutil.rmtree(out_dir, ignore_errors=True)
     log(f"[tooling] phase 10 wall {time.perf_counter() - t0:.1f} s (dry runs {walls})")
-    return {"dryrun_wall_s": walls, **roof}
+    return {"dryrun_wall_s": walls, "dryrun_3d": check_3d, **roof}
 
 
 def tooling_only() -> int:

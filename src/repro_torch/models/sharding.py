@@ -283,15 +283,32 @@ def split_dim(x, dim: int, sizes: tuple):
     """``x`` with dimension ``dim`` reshaped into ``sizes``. A DTensor's
     mesh dimensions that shard ``dim`` and do not divide ``sizes[0]`` are
     replicated first (DTensor cannot unflatten an uneven shard; the
-    reference's GSPMD does the same)."""
+    reference's GSPMD does the same). The gradient of that redistribution
+    is made contiguous: its backward can move a shard from another,
+    unevenly split dimension to ``dim`` (an all-to-all that pads, then
+    narrows), and the op that produced ``x`` (a matmul) views it."""
     dim = dim % x.dim()
     if isinstance(x, DTensor):
         mesh = x.device_mesh
         pl = tuple(Replicate() if p.is_shard(dim) and sizes[0] % mesh.size(i) else p
                    for i, p in enumerate(x.placements))
         if pl != tuple(x.placements):
+            if x.requires_grad:
+                x.register_hook(contiguous_local)
             x = x.redistribute(mesh, pl)
     return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def contiguous_local(x):
+    """The DTensor ``x`` with a contiguous local block (a copy where it is
+    not; ``x`` itself where it is). ``DTensor.contiguous`` reads the global
+    strides, which a redistribution leaves contiguous whatever its local
+    block's are."""
+    local = x.to_local()
+    if local.is_contiguous():
+        return x
+    return DTensor.from_local(local.contiguous(), x.device_mesh, x.placements,
+                              shape=x.shape, stride=x.stride(), run_check=False)
 
 
 def whole_last(x):

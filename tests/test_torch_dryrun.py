@@ -21,7 +21,10 @@ same step on an ``AbstractMesh`` of that shape. (5) ``run_epidemic_dryrun``
 on twin-2k (2,000 people) over a fake 4-worker world: the day runs, its
 collectives are the topology's schedule (2 all-to-all, 1 all-gather, 1
 all-reduce) with the counters' bytes. (6) The CLI writes the reference's
-artifact names and records a failed cell as ``error``.
+artifact names and records a failed cell as ``error``. (7) whisper-base's
+encoder self-attention, forward and backward, on fake 3-D worlds, the
+op of the 2 x 16 x 16 train_4k cell whose backward viewed a
+non-contiguous gradient (the whole cell takes minutes).
 """
 
 import dataclasses
@@ -33,6 +36,7 @@ import jax
 import pytest
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro import configs as jcfg
 from repro.analysis import roofline as j_rf
@@ -41,6 +45,11 @@ from repro.models import model as JM
 from repro_torch import configs as tcfg
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
+from repro_torch.launch import steps as t_steps
+from repro_torch.models import encdec
+from repro_torch.models import model as TM
+from repro_torch.models import sharding as t_shard
+from repro_torch.models.transformer import layer_list
 
 MESH = (2, 2)
 TRAIN = ShapeConfig("train_s", "train", 64, 4)
@@ -142,6 +151,76 @@ def test_dropped_shardings_equal_the_reference(shape):
     rec = _cell("smollm-360m", shape, quick=True, mesh=(2, 4))
     want = _ref_dropped("smollm-360m", shape, (2, 4))
     assert want and rec["dropped_shardings"] == want
+
+
+# (mesh, batch, frames, d_model, heads): the production multi-pod world at
+# whisper-base's published widths (the train_4k cell's placements and local
+# shapes), and a small world with the same unevenness: the local batch does
+# not split over the model axis, nor do the frames or the heads
+ENCODER_WORLDS = {"2x16x16": ((2, 16, 16), 256, 1500, 512, 8),
+                  "2x2x4": ((2, 2, 4), 8, 6, 64, 2)}
+
+
+@pytest.mark.parametrize("world", sorted(ENCODER_WORLDS))
+def test_encoder_attention_backward_on_a_3d_world(world):
+    """``encdec._mha`` of an encoder layer, forward and backward, on ``meta``
+    DTensors placed by the train step's shardings, with the output's
+    gradient placed as the layer's backward gives it (the batch split over
+    pod and data, a partial sum over model). The heads do not divide the
+    model axis, so the value projection's ``split_dim`` replicates it; that
+    redistribution's backward moved the gradient's model shard from the
+    frames, split unevenly, to the features (an all-to-all that pads, then
+    narrows), and the projection's matmul viewed the non-contiguous block
+    (on 2 x 16 x 16: (8, 1500, 32), strides (48128, 32, 1), to (12000, 32))."""
+    mesh_shape, batch, frames, d_model, heads = ENCODER_WORLDS[world]
+    cfg = dataclasses.replace(tcfg.get_config("whisper-base"), enc_layers=1, enc_frames=frames,
+                              d_model=d_model, num_heads=heads, num_kv_heads=heads,
+                              head_dim=d_model // heads)
+    shape = ShapeConfig("train_s", "train", 16, batch)
+    with dryrun.fake_world(math.prod(mesh_shape)):
+        mesh = dryrun._mesh(True, mesh_shape)
+        rules = t_shard.MeshRules.for_mesh(mesh)
+        p_s, _, b_s = t_steps.train_shardings(cfg, shape, rules, mesh, 24)[0]
+        layers = t_steps.place(TM.abstract_params(cfg, 24)["enc_layers"], p_s["enc_layers"])
+        x = t_steps.place(TM.input_specs(cfg, shape)["frames"], b_s["frames"])
+        leaves = {k: v.detach().requires_grad_() for k, v in layers.items()}
+        x.requires_grad_()
+        with torch.enable_grad(), t_shard.replicate_plain():
+            layer = layer_list(TM.cast_params(cfg, leaves))[0]
+            out = encdec._mha(x, x, layer, cfg, train=True, rules=rules)
+            data = mesh.size(0) * mesh.size(1)
+            g_out = DTensor.from_local(
+                torch.empty((batch // data, frames, d_model), dtype=out.dtype, device="meta"),
+                mesh, (Shard(0), Shard(0), Partial()), shape=out.shape, stride=out.stride(),
+                run_check=False)
+            grads = torch.autograd.grad(out, [x, *leaves.values()], g_out, allow_unused=True)
+        assert (x.to_local().shape, tuple(x.placements)) == (
+            (batch // data, frames, d_model), (Shard(0), Shard(0), Replicate()))
+        got = dict(zip(["frames", *leaves], grads))
+        assert got["frames"].shape == x.shape
+        for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo"):
+            assert got[k].shape == leaves[k].shape, k
+        # the guard replicated the heads: split_dim's redistribution
+        assert any(ax == "heads" and why == "indivisible"
+                   for (_, ax, _, _, why) in rules.dropped)
+
+
+def test_contiguous_local_copies_only_a_non_contiguous_block():
+    """The block DTensor's all-to-all leaves after a padded shard (a narrow
+    of (8, 1504, 32)) is copied; ``DTensor.contiguous`` reads the global
+    strides and would not copy it. A contiguous block is returned as it
+    is."""
+    with dryrun.fake_world(16):
+        mesh = dryrun._mesh(False, (1, 16))
+        placed = (Replicate(), Shard(2))
+        block = torch.empty(8, 1504, 32, device="meta")[:, :1500]
+        x = DTensor.from_local(block, mesh, placed, shape=(8, 1500, 512),
+                               stride=(768000, 512, 1), run_check=False)
+        assert x.is_contiguous() and x.contiguous().to_local().stride() == (48128, 32, 1)
+        y = t_shard.contiguous_local(x)
+        assert y.to_local().is_contiguous() and y.to_local().shape == (8, 1500, 32)
+        assert (y.shape, y.stride(), tuple(y.placements)) == (x.shape, x.stride(), placed)
+        assert t_shard.contiguous_local(y) is y
 
 
 def test_skipped_cell_builds_no_world():

@@ -1,9 +1,10 @@
-"""Every top-level name of the reference's epidemic side, of its models and
-of its LM tooling has a counterpart in the port.
+"""Every top-level name of the reference's epidemic side, of its models, of
+its LM tooling, its data and its kernels has a counterpart in the port.
 
 For each module of ``repro`` under ``core/``, ``engine/``, ``serve/``,
 ``api/``, ``runtime/``, ``checkpoint/``, ``configs/``, ``models/``,
-``optim/``, ``launch/`` and ``analysis/``, the
+``optim/``, ``launch/``, ``analysis/``, ``data/`` and ``kernels/`` (and
+each of ``kernels/``'s subpackages), the
 module of the same path in ``repro_torch`` must define every public
 top-level name the reference's defines: functions, classes and assigned
 constants, and in a package's ``__init__.py`` also the names it re-exports
@@ -11,7 +12,9 @@ with ``from ... import``. Both sides are read with ``ast``: nothing is
 imported, so no JAX.
 
 A name that the port keeps in another module is listed in ``MOVED`` with
-that module, which must define it. The only module allowed to be missing is
+that module, which must define it. A name whose work the port routes to
+another of its functions is listed in ``ROUTED`` with that function, which
+must exist, and the reason. The only module allowed to be missing is
 ``core/compat.py``, a JAX ``shard_map`` shim with nothing to port.
 """
 
@@ -23,7 +26,10 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF, PORT = os.path.join(ROOT, "src", "repro"), os.path.join(ROOT, "src", "repro_torch")
 PACKAGES = ("core", "engine", "serve", "api", "runtime", "checkpoint", "configs", "models",
-            "optim", "launch", "analysis")
+            "optim", "launch", "analysis", "data", "kernels")
+#: Packages whose subpackages are covered too (``analysis/lint/`` is the
+#: port's own determinism rules, not a counterpart of the reference's).
+RECURSIVE = ("kernels",)
 
 #: Modules with no counterpart, and why.
 MISSING_MODULES = {"core/compat.py": "a JAX shard_map shim (ROADMAP queue 1 item 9's note)"}
@@ -36,6 +42,45 @@ MOVED = {
                         "assert_no_f64": "analysis/dispatch.py",
                         "collective_count": "analysis/dispatch.py",
                         "recompile_sentinel": "analysis/capture.py"},
+}
+
+_BY_ROUTE = ("the port runs the reference's backends jnp, scan and compact as pallas-compact "
+             "(api/spec.py ROUTES; ROADMAP queue 3, differences by design)")
+_COMPACT = "kernels/interactions/ops.py:interactions_compact_edges"
+#: The interaction backends by the reference's names (its ``ops.py``,
+#: re-exported by its ``__init__.py``): {name: (the port's "module:function"
+#: that does the work, why)}.
+_BACKENDS = {
+    "interactions_auto": ("kernels/interactions/ops.py:interactions_auto_edges",
+                          "the dispatch by backend name, with the edge count: " + _BY_ROUTE),
+    "interactions_blocked_jnp": (_COMPACT, _BY_ROUTE),
+    "interactions_blocked_scan": (_COMPACT, _BY_ROUTE),
+    "interactions_compact": (_COMPACT, _BY_ROUTE),
+    "interactions_pallas": ("kernels/interactions/ops.py:interactions_padded",
+                            "backend pallas, the padded schedule (api/spec.py ROUTES)"),
+}
+#: Names whose work the port does in another function, by reference module.
+ROUTED = {
+    "kernels/interactions/__init__.py": _BACKENDS,
+    "kernels/interactions/ops.py": {
+        **_BACKENDS,
+        "interactions_pallas_compact": (_COMPACT, "backend pallas-compact without the edge "
+                                        "count, which the port's pass always returns"),
+    },
+    "kernels/interactions/kernel.py": {
+        "interactions_pallas_call": ("kernels/interactions/kernel.py:interactions_padded_cuda",
+                                     "the Pallas launcher of the padded pass: the port "
+                                     "launches its CUDA kernel (csrc/interactions.cu)"),
+        "interactions_pallas_compact_call": (
+            "kernels/interactions/kernel.py:interactions_compact_cuda",
+            "the Pallas launcher of the compacted pass: the port launches its CUDA kernel "
+            "(csrc/interactions.cu)"),
+    },
+    "kernels/flash_attention/kernel.py": {
+        "flash_attention_bhsd": ("kernels/flash_attention/kernel.py:flash_attention_bhsd_cuda",
+                                 "the Pallas launcher: the port launches its CUDA kernels "
+                                 "(csrc/flash_attention.cu)"),
+    },
 }
 
 
@@ -59,8 +104,14 @@ def _names(path: str) -> set:
 
 
 def _modules():
-    return sorted(f"{pkg}/{f}" for pkg in PACKAGES
-                  for f in os.listdir(os.path.join(REF, pkg)) if f.endswith(".py"))
+    def files(pkg):
+        top = os.path.join(REF, pkg)
+        if pkg not in RECURSIVE:
+            return [os.path.join(top, f) for f in os.listdir(top)]
+        return [os.path.join(d, f) for d, _, fs in os.walk(top) for f in fs]
+
+    return sorted(os.path.relpath(f, REF) for pkg in PACKAGES for f in files(pkg)
+                  if f.endswith(".py"))
 
 
 @pytest.mark.parametrize("module", _modules())
@@ -72,14 +123,18 @@ def test_port_has_every_reference_name(module):
     assert os.path.exists(port), f"the port has no {module}"
     queued = QUEUED.get(module, {})
     moved = MOVED.get(module, {})
+    routed = ROUTED.get(module, {})
     for name, where in moved.items():
         assert name in _names(os.path.join(PORT, where)), f"{module}:{name} is not in {where}"
+    for name, (target, why) in routed.items():
+        where, fn = target.split(":")
+        assert fn in _names(os.path.join(PORT, where)), f"{module}:{name} routes to no {target}"
     missing = _names(os.path.join(REF, module)) - _names(port) - set(moved)
-    assert missing <= set(queued), \
-        f"{module}: no counterpart for {sorted(missing - set(queued))}"
+    allowed = set(queued) | set(routed)
+    assert missing <= allowed, f"{module}: no counterpart for {sorted(missing - allowed)}"
     # an allowed name that the port now has must leave the allow-list
-    assert not set(queued) - missing, \
-        f"{module}: {sorted(set(queued) - missing)} exist now: drop them from QUEUED"
+    assert not allowed - missing, \
+        f"{module}: {sorted(allowed - missing)} exist now: drop them from QUEUED or ROUTED"
 
 
 def test_the_allow_list_names_roadmap_items():
@@ -91,3 +146,7 @@ def test_the_allow_list_names_roadmap_items():
         for name, why in names.items():
             assert name in roadmap, f"{name} is allowed missing but ROADMAP does not queue it"
             assert why.startswith("ROADMAP queue 1 item")
+    for names in ROUTED.values():
+        for name, (_, why) in names.items():
+            assert name in roadmap, f"{name} is routed but ROADMAP does not name it"
+            assert why

@@ -58,6 +58,7 @@ from repro_torch.configs import get_epidemic
 from repro_torch.engine import core as engine_lib
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.runtime import resilience as resilience_lib
+from repro_torch.runtime import spans
 
 #: The engine-core layout of each engine.
 LAYOUTS = {"single": "local", "ensemble": "local", "dist": "workers",
@@ -156,7 +157,11 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
     ``chaos=`` injects a deterministic fault schedule
     (:class:`repro_torch.runtime.chaos.ChaosSchedule`) into the chunk loop
     and implies the resilient path; ``on_straggler(day, dt, median)``
-    observes straggler detections."""
+    observes straggler detections.
+
+    Under a ``torch.profiler`` the run's spans
+    (:mod:`repro_torch.runtime.spans`) land on the profiler's timeline;
+    without one they cost a flag read each."""
     spec = spec.validate()
     t0 = time.time()
     device = engine_lib.resolve_device(device)
@@ -164,10 +169,11 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
     engine = _resolve_engine(spec, B)
     mesh = _make_mesh(engine, spec)
     pop = population if population is not None else get_epidemic(spec.dataset).build()
-    batch = spec.build_batch()
-    observables = obs_lib.make_observables(spec.observables)
-    ctx = obs_lib.ObsContext(num_people=pop.num_people, num_scenarios=B,
-                             sweep_axes=_sweep_axes(spec, B), device=str(device))
+    with spans.span("run.batch"):
+        batch = spec.build_batch()
+        observables = obs_lib.make_observables(spec.observables)
+        ctx = obs_lib.ObsContext(num_people=pop.num_people, num_scenarios=B,
+                                 sweep_axes=_sweep_axes(spec, B), device=str(device))
     # A pinned single or dist engine with B > 1 runs the scenarios one at a
     # time; cross-scenario reductions then replay after the run.
     in_scan = not (engine in ("single", "dist") and B > 1)
@@ -256,15 +262,15 @@ def run(spec: ExperimentSpec, *, population=None, device="cuda", chaos=None,
     if state is None:  # this rank left a shrinking mesh (run_resilient)
         return _retired_result(spec, batch, engine, report, shrinks, timeline, t0, run_wall)
 
-    if in_scan:
-        obs = obs_lib.finalize_all(observables, carries, dailies, ctx)
-    else:
-        obs = obs_lib.observe_history(observables, hist, ctx)
-    obs = obs_lib.observables_to_numpy(obs)
-    if any(v.shape[1] != B for v in hist.values()):
-        raise AssertionError("the engine core leaked padded scenario slots into the history")
-
-    summaries = summarize_sweep(hist, batch.names, pop.num_people)
+    with spans.span("run.finalize"):
+        if in_scan:
+            obs = obs_lib.finalize_all(observables, carries, dailies, ctx)
+        else:
+            obs = obs_lib.observe_history(observables, hist, ctx)
+        obs = obs_lib.observables_to_numpy(obs)
+        if any(v.shape[1] != B for v in hist.values()):
+            raise AssertionError("the engine core leaked padded scenario slots into the history")
+        summaries = summarize_sweep(hist, batch.names, pop.num_people)
     provenance = {
         "engine": engine,
         "layout": core.layout,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import population as pop_lib
+from repro_torch.runtime import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,35 +48,36 @@ def build_week_data(pop: pop_lib.Population, block_size: int) -> WeekData:
     visit layout (population.py:pack_day_occupancy, the reference's
     ``pack=True``), which shrinks the block-pair schedule NP; layout is
     epidemiologically free (counter-based draws key on ids, not slots)."""
-    week = [pop_lib.pack_day_occupancy(d, block_size) for d in pop.week]
-    size = max(len(d) for d in week)
-    week = [pop_lib.extend_packed(d, size) for d in week]
+    with spans.span("week.pack"):
+        week = [pop_lib.pack_day_occupancy(d, block_size) for d in pop.week]
+        size = max(len(d) for d in week)
+        week = [pop_lib.extend_packed(d, size) for d in week]
     extents = [d.extent for d in week]
-    scheds = [
-        pop_lib.build_block_schedule(d.loc, e, block_size)
-        for d, e in zip(week, extents)
-    ]
+
+    def schedule(d, e, **kw):
+        with spans.span("week.schedule"):
+            return pop_lib.build_block_schedule(d.loc, e, block_size, **kw)
+
+    scheds = [schedule(d, e) for d, e in zip(week, extents)]
     np_max = max(s.row_block.shape[0] for s in scheds)
-    scheds = [
-        pop_lib.build_block_schedule(d.loc, e, block_size, pad_to=np_max)
-        for d, e in zip(week, extents)
-    ]
+    scheds = [schedule(d, e, pad_to=np_max) for d, e in zip(week, extents)]
 
     def stack(getter, dtype):
         return np.stack([getter(x) for x in zip(week, scheds)]).astype(dtype)
 
-    return WeekData(
-        pid=stack(lambda x: x[0].person, np.int32),
-        loc=stack(lambda x: x[0].loc, np.int32),
-        start=stack(lambda x: x[0].start, np.float32),
-        end=stack(lambda x: x[0].end, np.float32),
-        row_idx=stack(lambda x: x[1].row_block, np.int32),
-        col_idx=stack(lambda x: x[1].col_block, np.int32),
-        row_start=stack(lambda x: x[1].row_start, np.int32),
-        pair_active=stack(lambda x: x[1].pair_active, np.int32),
-        block_size=block_size,
-        num_blocks=len(week[0]) // block_size,
-    )
+    with spans.span("week.stack"):
+        return WeekData(
+            pid=stack(lambda x: x[0].person, np.int32),
+            loc=stack(lambda x: x[0].loc, np.int32),
+            start=stack(lambda x: x[0].start, np.float32),
+            end=stack(lambda x: x[0].end, np.float32),
+            row_idx=stack(lambda x: x[1].row_block, np.int32),
+            col_idx=stack(lambda x: x[1].col_block, np.int32),
+            row_start=stack(lambda x: x[1].row_start, np.int32),
+            pair_active=stack(lambda x: x[1].pair_active, np.int32),
+            block_size=block_size,
+            num_blocks=len(week[0]) // block_size,
+        )
 
 
 def person_slot_table(pid: np.ndarray, num_people: int) -> np.ndarray:
@@ -111,19 +113,22 @@ def week_from_numpy(arrays: dict, num_people: int, *, device) -> dict:
     ignored), e.g. from ``jax.device_get``. Returns them as tensors on
     ``device`` plus the ``slots`` table of :func:`person_slot_table`."""
     pid = np.asarray(arrays["pid"])
+    with spans.span("week.slot_table"):
+        slots = person_slot_table(pid, num_people)
     t = lambda k, dtype: torch.as_tensor(np.array(arrays[k]), device=device).to(dtype)
-    return {
-        "pid": t("pid", torch.int32),
-        "loc": t("loc", torch.int32),
-        "start": t("start", torch.float32),
-        "end": t("end", torch.float32),
-        "p": t("p", torch.float32),
-        "row": t("row", torch.int32),
-        "col": t("col", torch.int32),
-        "rs": t("rs", torch.int32),
-        "pa": t("pa", torch.int32),
-        "slots": torch.as_tensor(person_slot_table(pid, num_people), device=device),
-    }
+    with spans.span("week.upload"):
+        return {
+            "pid": t("pid", torch.int32),
+            "loc": t("loc", torch.int32),
+            "start": t("start", torch.float32),
+            "end": t("end", torch.float32),
+            "p": t("p", torch.float32),
+            "row": t("row", torch.int32),
+            "col": t("col", torch.int32),
+            "rs": t("rs", torch.int32),
+            "pa": t("pa", torch.int32),
+            "slots": torch.as_tensor(slots, device=device),
+        }
 
 
 def day_exposure(week: dict, dow, num_people: int, person_sus_val: torch.Tensor,

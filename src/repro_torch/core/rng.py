@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.runtime import spans
+
 # Stream ids — keep stable; they are part of the reproducibility contract.
 CONTACT = 0x01
 INFECT = 0x02
@@ -73,10 +75,11 @@ def hash_u32(seed, *words):
     python ints; at least one must be a tensor. Order-sensitive: (i, j) and
     (j, i) produce independent draws.
     """
-    h = fmix32(_u32(seed) ^ _GOLDEN)  # a python int while the seed is one
-    for i, w in enumerate(words):
-        h = fmix32(h ^ fmix32((_u32(w) + _GOLDEN * (i + 1)) & _MASK))
-    return h
+    with spans.span("rng.hash"):
+        h = fmix32(_u32(seed) ^ _GOLDEN)  # a python int while the seed is one
+        for i, w in enumerate(words):
+            h = fmix32(h ^ fmix32((_u32(w) + _GOLDEN * (i + 1)) & _MASK))
+        return h
 
 
 def uniform(seed, *words):

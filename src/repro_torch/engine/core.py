@@ -78,6 +78,7 @@ from repro_torch.engine.runner import DayRunner
 from repro_torch.engine.topology import make_topology
 from repro_torch.kernels.interactions import ops as iops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.runtime import spans
 
 LAYOUTS = ("local", "workers", "scenarios", "hybrid")
 #: The mesh axis names (the reference's): people and locations split over
@@ -336,11 +337,6 @@ class EngineCore:
         self.padded = pad_batch(self.batch, self.scen_shards)
         self.block_size = block_size
         self.max_seed_per_day = max_seed_per_day
-        self.iv_slots, self.pa_slots, params_list = build_batch_params(
-            pop, self.padded, device=self.device)
-        # Pad slots carry inert params: nothing is seeded or infected there.
-        for i in range(self.num_real, len(self.padded)):
-            params_list[i] = no_op_params(params_list[i])
         t0 = time.perf_counter()
         if "workers" in axes:
             if plan is None:
@@ -353,15 +349,26 @@ class EngineCore:
             self.plan = plan
             self.week = week if week is not None else sd.week_device_arrays(
                 self.plan, self.mesh.worker_index, device=self.device)
-            params_list = [sd.pad_params(p, self.plan) for p in params_list]
             self.people_per_worker = self.plan.people_per_worker
         else:
             self.plan = None
-            self.week = week if week is not None else local_week_arrays(
-                pop, inter_lib.build_week_data(pop, block_size), device=self.device)
+            if week is None:
+                with spans.span("week"):
+                    week = local_week_arrays(pop, inter_lib.build_week_data(pop, block_size),
+                                             device=self.device)
+            self.week = week
             self.people_per_worker = pop.num_people
         self.plan_build_s = time.perf_counter() - t0
-        self.params = self._shard(stack_params(params_list), PERSON_PARAM_FIELDS)
+        with spans.span("run.params"):
+            self.iv_slots, self.pa_slots, params_list = build_batch_params(
+                pop, self.padded, device=self.device)
+            # Pad slots carry inert params: nothing is seeded or infected there.
+            for i in range(self.num_real, len(self.padded)):
+                params_list[i] = no_op_params(params_list[i])
+            if self.plan is not None:
+                params_list = [sd.pad_params(p, self.plan) for p in params_list]
+            self.params = self._shard(stack_params(params_list), PERSON_PARAM_FIELDS)
+            del params_list  # B scenarios' tensors, freed inside the span
         Pw = self.people_per_worker
         max_spd = (max_seed_per_day if max_seed_per_day is not None
                    else max(s.seed_per_day for s in self.padded))
@@ -846,49 +853,50 @@ def run_chunked(driver, days: int, observables: tuple, ctx, *, manager=None,
             carries, pre = obs_lib.scan_history(observables, hists[0], ctx)
             daily_chunks = [pre] if pre is not None else []
         day, resumed_from = step, step
-    if state is None:
-        state = driver.init_state()
-    if carries is None and driver.in_scan:
-        carries = obs_lib.init_carries(observables, ctx)
-    if hooks is not None:
-        hooks.on_start(state, day)
+    with spans.span("run.days"):
+        if state is None:
+            state = driver.init_state()
+        if carries is None and driver.in_scan:
+            carries = obs_lib.init_carries(observables, ctx)
+        if hooks is not None:
+            hooks.on_start(state, day)
 
-    chunk = every if manager is not None else days
-    num_chunks = 0
-    while day < days:
-        n = min(chunk, days - day)
-        t0 = time.perf_counter()
-        if hooks is not None:
-            hooks.before_chunk(day, n)
-        state, hist, carries, dl = driver.run_chunk(n, state, carries)
-        if hooks is not None:
-            # May raise (guard veto of a poisoned state) — nothing below
-            # runs, so the poison is never appended or checkpointed.
-            state = hooks.after_chunk(day + n, state, time.perf_counter() - t0)
-        hists.append(hist)
-        if dl is not None:
-            daily_chunks.append(dl)
-        day += n
-        num_chunks += 1
-        if manager is not None:
-            # Each boundary rewrites the full history-so-far (a few int64s
-            # per scenario-day) beside the state, so the newest snapshot
-            # alone restores the run. save() copies to the host here. On a
-            # mesh rank 0 writes the whole state and the others wait.
-            if core.is_writer:
-                manager.save(day, {
-                    "day": np.asarray(day, np.int32),
-                    "state": state_to_tree(state),
-                    "hist": concat_hists(hists),
-                }, extra={"resume_key": resume_key})
-            core.barrier(manager)
+        chunk = every if manager is not None else days
+        num_chunks = 0
+        while day < days:
+            n = min(chunk, days - day)
+            t0 = time.perf_counter()
             if hooks is not None:
-                hooks.after_save(day)
-    if manager is not None:
-        manager.wait()
+                hooks.before_chunk(day, n)
+            state, hist, carries, dl = driver.run_chunk(n, state, carries)
+            if hooks is not None:
+                # May raise (guard veto of a poisoned state) — nothing below
+                # runs, so the poison is never appended or checkpointed.
+                state = hooks.after_chunk(day + n, state, time.perf_counter() - t0)
+            hists.append(hist)
+            if dl is not None:
+                daily_chunks.append(dl)
+            day += n
+            num_chunks += 1
+            if manager is not None:
+                # Each boundary rewrites the full history-so-far (a few int64s
+                # per scenario-day) beside the state, so the newest snapshot
+                # alone restores the run. save() copies to the host here. On a
+                # mesh rank 0 writes the whole state and the others wait.
+                if core.is_writer:
+                    manager.save(day, {
+                        "day": np.asarray(day, np.int32),
+                        "state": state_to_tree(state),
+                        "hist": concat_hists(hists),
+                    }, extra={"resume_key": resume_key})
+                core.barrier(manager)
+                if hooks is not None:
+                    hooks.after_save(day)
+        if manager is not None:
+            manager.wait()
 
-    hist = concat_hists(hists)
-    dailies = concat_dailies(daily_chunks) if daily_chunks else None
+        hist = concat_hists(hists)
+        dailies = concat_dailies(daily_chunks) if daily_chunks else None
     return state, hist, carries, dailies, resumed_from, num_chunks
 
 
@@ -917,8 +925,9 @@ class CoreDriver:
             carries=carries)
         # The history's host copy ends the chunk: a chunk's wall time
         # (run_chunked's dt) includes the device's work.
-        return (core.gather_state(shard), hist_to_numpy(hist), carries,
-                obs_lib.observables_to_numpy(dailies))
+        with spans.span("run.host_copy"):
+            return (core.gather_state(shard), hist_to_numpy(hist), carries,
+                    obs_lib.observables_to_numpy(dailies))
 
 
 class SequentialDriver:

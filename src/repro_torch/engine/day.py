@@ -56,6 +56,7 @@ from repro_torch.core import rng
 from repro_torch.core import simulator as sim_lib
 from repro_torch.core import transmission as tx_lib
 from repro_torch.kernels.interactions import ops as iops
+from repro_torch.runtime import spans
 
 STAT_KEYS = sim_lib.STAT_KEYS
 
@@ -122,36 +123,42 @@ def interact(topo, static: EngineStatic, take, person_chans: torch.Tensor,
     ``contact_day`` are the (B,) words of the contact hash, ``tau`` the (B,)
     prefactor. Returns ``(A (B, P), cnt (B, V), edges (B,), trc_p)``,
     ``trc_p`` the (B, P) traced contacts, or None when nothing traces."""
-    pid, loc = take("pid"), take("loc")
-    route = topo.day_route(take)
-    visit_vals = topo.dispatch(pid, person_chans, route)  # (B, V, ch)
-    sus_v, inf_v, ok_v = visit_vals[..., 0], visit_vals[..., 1], visit_vals[..., 2]
-    open_v = loc_open[:, loc.clamp(max=static.num_locations - 1)]
-    active = (pid >= 0) & (ok_v > 0.0) & open_v
-    eff_pid = torch.where(active, pid, -1)
-    sus_v = sus_v * active
-    inf_v = inf_v * active
+    with spans.span("day.dispatch"):
+        pid, loc = take("pid"), take("loc")
+        route = topo.day_route(take)
+        visit_vals = topo.dispatch(pid, person_chans, route)  # (B, V, ch)
+        sus_v, inf_v, ok_v = visit_vals[..., 0], visit_vals[..., 1], visit_vals[..., 2]
+        open_v = loc_open[:, loc.clamp(max=static.num_locations - 1)]
+        active = (pid >= 0) & (ok_v > 0.0) & open_v
+        eff_pid = torch.where(active, pid, -1)
+        sus_v = sus_v * active
+        inf_v = inf_v * active
 
     b = static.block_size
     nb = pid.shape[0] // b
-    meta = torch.stack([seed, contact_day], dim=-1)
-    args = (eff_pid, loc, take("start"), take("end"), take("p"), sus_v, inf_v,
-            take("row"), take("col"), take("rs"), take("pa"),
-            iops.col_has_infectious(inf_v, eff_pid, nb, b),
-            iops.row_has_susceptible(sus_v, eff_pid, nb, b), meta)
-    tau = tau[:, None]
-    if any(ps.trace for ps in static.pa_slots):
-        # Second accumulator: traced contacts ride the exposure tiles, and
-        # the traced-contact channel rides the exposure combine.
-        acc, cnt, edges, trc = iops.interactions_auto_traced(
-            *args, backend=static.backend, block_size=b,
-            src_val=visit_vals[..., 3] * active)
-        combined = topo.combine_many(
-            route, active, torch.stack([acc, trc.to(torch.float32)], dim=-1))
-        return combined[..., 0] * tau, cnt, edges, combined[..., 1]
-    acc, cnt, edges = iops.interactions_auto_edges(
-        *args, backend=static.backend, block_size=b)
-    return topo.combine(route, active, acc) * tau, cnt, edges, None
+    traced = any(ps.trace for ps in static.pa_slots)
+    with spans.span("day.interactions"):
+        meta = torch.stack([seed, contact_day], dim=-1)
+        args = (eff_pid, loc, take("start"), take("end"), take("p"), sus_v, inf_v,
+                take("row"), take("col"), take("rs"), take("pa"),
+                iops.col_has_infectious(inf_v, eff_pid, nb, b),
+                iops.row_has_susceptible(sus_v, eff_pid, nb, b), meta)
+        if traced:
+            # Second accumulator: traced contacts ride the exposure tiles,
+            # and the traced-contact channel rides the exposure combine.
+            acc, cnt, edges, trc = iops.interactions_auto_traced(
+                *args, backend=static.backend, block_size=b,
+                src_val=visit_vals[..., 3] * active)
+        else:
+            acc, cnt, edges = iops.interactions_auto_edges(
+                *args, backend=static.backend, block_size=b)
+    with spans.span("day.combine"):
+        tau = tau[:, None]
+        if traced:
+            combined = topo.combine_many(
+                route, active, torch.stack([acc, trc.to(torch.float32)], dim=-1))
+            return combined[..., 0] * tau, cnt, edges, combined[..., 1]
+        return topo.combine(route, active, acc) * tau, cnt, edges, None
 
 
 def exposure(topo, static: EngineStatic, week: dict,
@@ -165,49 +172,53 @@ def exposure(topo, static: EngineStatic, week: dict,
     take = lambda k: week[k].index_select(0, dow)[0]
     seed_w, day_w = params.seed[:, None], day[:, None]  # hash words (B, 1)
 
-    # ---- interventions + per-person epidemiological channels -----------
-    visit_ok, loc_open, person_sus, person_inf, vaccinated = visits(
-        static, params, state, Pw)
-
-    # ---- per-agent interventions: isolation and the testing budget -------
-    iv = params.iv
     tracing_on = any(ps.trace for ps in static.pa_slots)
     ex = {}
-    if static.pa_slots:
-        gpid = topo.gpid(Pw, day.device)
-        in_iso = day_w < state.isolated_until
-        visit_ok = visit_ok & ~in_iso
-        sym = _look(params.sym_table, state.health) > 0.0
-        detectable = _look(params.inf_table, state.health) > 0.0
-        take_any = torch.zeros_like(in_iso)
-        tests_used = torch.zeros_like(day)
-        takes = []
-        for k2 in range(len(static.pa_slots)):
-            act = (iv.pa_enabled[:, k2] & (day >= iv.pa_start[:, k2]))[:, None]
-            elig = act & iv.pa_people[:, k2] & ~state.tested & ~in_iso & (sym | state.traced)
-            # Symptomatic candidates draw in (0,1), traced-only in (2,3),
-            # ineligible sit at 4.0: one lexicographic top-k over
-            # (score, gpid) is then an exact priority-tiered budget.
-            u = rng.uniform(seed_w, rng.TEST, day_w, k2, gpid)
-            score = torch.where(elig & sym, u, torch.where(elig, u + 2.0, 4.0))
-            T, G = topo.rank_threshold(score, gpid, iv.pa_tests[:, k2], P)
-            take_k = (elig & (iv.pa_tests[:, k2, None] > 0)
-                      & ((score < T[:, None]) | ((score == T[:, None]) & (gpid <= G[:, None]))))
-            takes.append(take_k)
-            take_any = take_any | take_k
-            tests_used = tests_used + take_k.sum(dim=-1)
-        # Result latency: positives circulate today as tracing sources and
-        # enter isolation from day + 1.
-        positives = take_any & detectable
-        ex = dict(takes=tuple(takes), in_iso=in_iso, detectable=detectable,
-                  tests_used=tests_used)
+    with spans.span("day.interventions"):
+        # ---- interventions + per-person epidemiological channels -------
+        visit_ok, loc_open, person_sus, person_inf, vaccinated = visits(
+            static, params, state, Pw)
+
+        # ---- per-agent interventions: isolation and the testing budget ---
+        iv = params.iv
+        if static.pa_slots:
+            gpid = topo.gpid(Pw, day.device)
+            in_iso = day_w < state.isolated_until
+            visit_ok = visit_ok & ~in_iso
+            sym = _look(params.sym_table, state.health) > 0.0
+            detectable = _look(params.inf_table, state.health) > 0.0
+            take_any = torch.zeros_like(in_iso)
+            tests_used = torch.zeros_like(day)
+            takes = []
+            for k2 in range(len(static.pa_slots)):
+                act = (iv.pa_enabled[:, k2] & (day >= iv.pa_start[:, k2]))[:, None]
+                elig = act & iv.pa_people[:, k2] & ~state.tested & ~in_iso & (sym | state.traced)
+                # Symptomatic candidates draw in (0,1), traced-only in (2,3),
+                # ineligible sit at 4.0: one lexicographic top-k over
+                # (score, gpid) is then an exact priority-tiered budget.
+                u = rng.uniform(seed_w, rng.TEST, day_w, k2, gpid)
+                score = torch.where(elig & sym, u, torch.where(elig, u + 2.0, 4.0))
+                T, G = topo.rank_threshold(score, gpid, iv.pa_tests[:, k2], P)
+                take_k = (elig & (iv.pa_tests[:, k2, None] > 0)
+                          & ((score < T[:, None])
+                             | ((score == T[:, None]) & (gpid <= G[:, None]))))
+                takes.append(take_k)
+                take_any = take_any | take_k
+                tests_used = tests_used + take_k.sum(dim=-1)
+            # Result latency: positives circulate today as tracing sources
+            # and enter isolation from day + 1.
+            positives = take_any & detectable
+            ex = dict(takes=tuple(takes), in_iso=in_iso, detectable=detectable,
+                      tests_used=tests_used)
+
+        person_chans = [person_sus, person_inf, visit_ok.to(torch.float32)]
+        if tracing_on:
+            person_chans.append(positives.to(torch.float32))
+        person_chans = torch.stack(person_chans, dim=-1)
+        contact_day = torch.where(params.static_network, day % pop_lib.DAYS_PER_WEEK, day)
 
     # ---- dispatch, the interaction pass (one launch), the combine --------
-    person_chans = [person_sus, person_inf, visit_ok.to(torch.float32)]
-    if tracing_on:
-        person_chans.append(positives.to(torch.float32))
-    contact_day = torch.where(params.static_network, day % pop_lib.DAYS_PER_WEEK, day)
-    A, cnt, edges, trc_p = interact(topo, static, take, torch.stack(person_chans, dim=-1),
+    A, cnt, edges, trc_p = interact(topo, static, take, person_chans,
                                     loc_open, params.seed, contact_day, params.tau_eff)
     if tracing_on:
         ex["trc_p"] = trc_p
@@ -256,44 +267,48 @@ def update(topo, static: EngineStatic, params: sim_lib.SimParams,
     seed_w, day_w = params.seed[:, None], day[:, None]
     A = ex.A
     gpid = topo.gpid(A.shape[-1], A.device)
-    infected = tx_lib.sample_infections(A, seed_w, day_w, gpid)
+    with spans.span("day.infect"):
+        infected = tx_lib.sample_infections(A, seed_w, day_w, gpid)
 
     # Outbreak seeding; both branches of the reference's lax.cond are
     # computed and the day decides, so no host sync.
-    sus_ok = _look(params.sus_table, state.health) > 0.0
-    us = torch.where(sus_ok, rng.uniform(seed_w, rng.SEED_CHOICE, day_w, gpid), 2.0)
-    thresh = topo.seed_threshold(us, params.seed_per_day, P)
-    seeded = ((us <= thresh[:, None]) & sus_ok
-              & ((params.seed_per_day > 0) & (day < params.seed_days))[:, None])
+    with spans.span("day.seed"):
+        sus_ok = _look(params.sus_table, state.health) > 0.0
+        us = torch.where(sus_ok, rng.uniform(seed_w, rng.SEED_CHOICE, day_w, gpid), 2.0)
+        thresh = topo.seed_threshold(us, params.seed_per_day, P)
+        seeded = ((us <= thresh[:, None]) & sus_ok
+                  & ((params.seed_per_day > 0) & (day < params.seed_days))[:, None])
 
-    new_mask = (infected | seeded) & sus_ok
-    health, dwell = disease_lib.update_health_tables(
-        params.cum_trans, params.dwell_mean, params.sus_table,
-        params.entry_state, state.health, state.dwell, new_mask,
-        seed_w, day_w, gpid,
-    )
-    tested, traced, isolated_until, pa_stats = advance_per_agent(
-        static, params, state, ex)
+    with spans.span("day.health"):
+        new_mask = (infected | seeded) & sus_ok
+        health, dwell = disease_lib.update_health_tables(
+            params.cum_trans, params.dwell_mean, params.sus_table,
+            params.entry_state, state.health, state.dwell, new_mask,
+            seed_w, day_w, gpid,
+        )
+        tested, traced, isolated_until, pa_stats = advance_per_agent(
+            static, params, state, ex)
 
     # ---- reductions (Algorithm 2 line 34), int64 throughout, summed over
     # the workers in one psum ------------------------------------------------
     # Every sum is int64 (torch sums integers to int64; contacts says so), the
     # widening DET004 asks for before a collective, which it reads only in
     # JAX's ``.astype`` form.
-    # detlint: ignore[DET004]
-    sums = topo.psum({
-        "new_infections": new_mask.sum(dim=-1),
-        "infectious": (_look(params.inf_table, health) > 0.0).sum(dim=-1),
-        "susceptible": (_look(params.sus_table, health) > 0.0).sum(dim=-1),
-        "contacts": ex.cnt.sum(dim=-1, dtype=torch.int64),
-        "edges": ex.edges,
-        **pa_stats,
-    })
-    cumulative = state.cumulative + sums["new_infections"]
-    stats = {"day": day, "cumulative": cumulative, **sums}
-    iv_active = iv_lib.evaluate_iv_triggers(
-        static.iv_slots, params.iv, day, stats, state.iv_active
-    )
+    with spans.span("day.stats"):
+        # detlint: ignore[DET004]
+        sums = topo.psum({
+            "new_infections": new_mask.sum(dim=-1),
+            "infectious": (_look(params.inf_table, health) > 0.0).sum(dim=-1),
+            "susceptible": (_look(params.sus_table, health) > 0.0).sum(dim=-1),
+            "contacts": ex.cnt.sum(dim=-1, dtype=torch.int64),
+            "edges": ex.edges,
+            **pa_stats,
+        })
+        cumulative = state.cumulative + sums["new_infections"]
+        stats = {"day": day, "cumulative": cumulative, **sums}
+        iv_active = iv_lib.evaluate_iv_triggers(
+            static.iv_slots, params.iv, day, stats, state.iv_active
+        )
     new_state = sim_lib.SimState(
         day=day + 1, health=health, dwell=dwell, cumulative=cumulative,
         iv_active=iv_active, vaccinated=ex.vaccinated, tested=tested,
@@ -326,12 +341,14 @@ def run_days(topo, static, week, params, state, days: int, observables: tuple = 
 
     rows, daily = [], []
     for _ in range(days):
-        state, stats = day_step(topo, static, week, params, state)
-        # the whole batch's statistics (a gather when the batch is sharded)
-        rows.append(topo.scen_gather(torch.stack([stats[k] for k in STAT_KEYS])))
-        real = {k: rows[-1][i, :num_real] for i, k in enumerate(STAT_KEYS)}
-        carries, d = obs_lib.update_all(observables, carries, real)
-        daily.append(d)
+        with spans.span("day"):
+            state, stats = day_step(topo, static, week, params, state)
+            with spans.span("day.observe"):
+                # the whole batch's statistics (a gather when the batch is sharded)
+                rows.append(topo.scen_gather(torch.stack([stats[k] for k in STAT_KEYS])))
+                real = {k: rows[-1][i, :num_real] for i, k in enumerate(STAT_KEYS)}
+                carries, d = obs_lib.update_all(observables, carries, real)
+                daily.append(d)
     if not rows:
         B = state.day.shape[0]
         return state, carries, torch.zeros((0, len(STAT_KEYS), B), dtype=torch.int64,

@@ -22,10 +22,11 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
 
   1. device — the card's name and power limit; no CUDA device is an error;
   2. build  — nvcc builds the interaction kernels (one source, four
-     instantiations) and the flash-attention kernels (one source: the bf16
+     instantiations), the flash-attention kernels (one source: the bf16
      wgmma/TMA design at Dh 64/128/256 and the float32 split-TF32 mma.sync
-     design at the same three), both at once, from the checkout's sources
-     and prints ptxas's registers / shared memory / spills for each;
+     design at the same three) and the counter draw (one source), all at
+     once, from the checkout's sources and prints ptxas's registers /
+     shared memory / spills for each;
   3. kernels against their plain versions at md-mini day shapes (b=128) in
      four states (early, mid-epidemic, everyone infectious and susceptible,
      and "shuffled": the mid inputs with the visits permuted inside each
@@ -41,11 +42,15 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      version and, per scenario, to its own B = 1 launch; at B = 8 timed on
      both timers beside eight B = 1 launches, the plain version and the
      bound (these B = 8 numbers fill the kernels' JSON record);
+  3c. the counter draw — rng_uniform_kernel against core/rng.py's int64
+     path on the card at the day's draw shape, B = 1 and (256, 55,130),
+     bitwise; its device-alone time beside its bound and the int64 path's;
   4. one scenario — EngineCore.single on md-mini, covid, seed 0, 200 days
      under torch.use_deterministic_algorithms(True), the day loop under
-     torch.cuda.set_sync_debug_mode("error"): one kernel launch per day,
-     edges == contacts every day, a monotone cumulative count above the
-     seeds, and a bitwise-identical second run; then the same run on the
+     torch.cuda.set_sync_debug_mode("error"): one kernel launch per day and
+     four counter draws (one more a day per testing slot under "tti", here
+     and wherever phases 4-4h count launches), edges == contacts every day,
+     a monotone cumulative count above the seeds, and a bitwise-identical second run; then the same run on the
      "pallas" backend, bitwise equal, through the padded kernel;
   4b. where a day's time goes (torch.profiler over one week);
   4c. the TTI path — the same run with the "tti" preset on each backend:
@@ -236,7 +241,10 @@ Phases, each fatal on failure (a traceback and a non-zero exit, no result):
      train_4k cell whose backward failed before; seconds, fatal).
 
 The line before the last is the kernels' JSON record (``launches``: phase
-4d's; flash's ``launches`` phase 7's, ``family_launches`` phase 7b's; ``served_launches``: phase 4f's closed-loop mix; ``mesh_launches``:
+4d's; the counter draw's ``launches`` phase 4d's B = 8 ensemble on
+pallas-compact, ``timed_launches`` phase 3c's; flash's ``launches`` phase
+7's, ``family_launches`` phase 7b's; ``served_launches``: phase 4f's
+closed-loop mix; ``mesh_launches``:
 phase 4g (a)-(d)'s, ``mesh_served_launches``: phase 4g (e)'s mixes and
 ``shrink_launches``: phase 4h (a)-(b)'s, each summed over its ranks;
 ``eager_launches``: phase 4i's run_eager; ``train_launches``: phase 8's,
@@ -264,6 +272,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATASET = "md-mini"
 DAYS = 200
+# The counter draw's launch count (kernels/rng/kernel.py:uniform_cuda), and
+# the draws of an eager day: infection, seeding, transition and dwell (one
+# more per testing slot, engine/day.py's TEST draw).
+DRAW = "rng_uniform"
+DRAWS_PER_DAY = 4
 PROFILE_FROM = 21  # a profiled week near the epidemic's peak
 BLOCK = 128
 # H100 SXM published peaks (NVIDIA H100 datasheet): 3.35 TB/s of HBM and
@@ -574,17 +587,19 @@ def run_path(core, wrappers, days: int, column=0, observables=()):
     initial state with every launch count set to 0 just before and read
     just after, the day loop (with the named ``observables`` updating inside
     it) under sync-debug "error". Returns (final, hist, launches, seconds):
-    ``hist`` maps each stat to scenario ``column``'s (days,) series, or with
+    ``launches`` maps each wrapper and :data:`DRAW` to its count; ``hist``
+    maps each stat to scenario ``column``'s (days,) series, or with
     ``column=None`` to the (days, B) array."""
     from repro_torch.api import observables as obs_lib
     from repro_torch.engine import hist_to_numpy
+    from repro_torch.kernels.rng import kernel as rng_kernel
 
     state = core.init_state()
     obs = obs_lib.make_observables(observables)
     carries = obs_lib.init_carries(obs, obs_lib.ObsContext(
         num_people=core.pop.num_people, num_scenarios=core.num_real, device=str(core.device)))
     torch.cuda.synchronize()
-    for w in wrappers.values():
+    for w in (*wrappers.values(), rng_kernel.uniform_cuda):
         w.launches = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
@@ -596,6 +611,7 @@ def run_path(core, wrappers, days: int, column=0, observables=()):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    launches[DRAW] = rng_kernel.uniform_cuda.launches
     hist = hist_to_numpy(hist)
     if column is not None:
         hist = {k: v[:, column] for k, v in hist.items()}
@@ -614,8 +630,13 @@ def same_run(a, b, what: str) -> None:
             raise AssertionError(f"{what}: final '{f}' differs")
 
 
-def expect_launches(launches: dict, kernel: str, days: int, what: str) -> None:
+def expect_launches(launches: dict, kernel: str, days: int, what: str,
+                    draws: int = DRAWS_PER_DAY) -> None:
+    """``kernel`` launched once a day and no other interaction kernel; where
+    ``launches`` counts the draw kernel (:data:`DRAW`), ``draws`` a day."""
     want = {k: days if k == kernel else 0 for k in launches}
+    if DRAW in launches:
+        want[DRAW] = draws * days
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
@@ -2736,6 +2757,41 @@ def batched_kernel_phase(core, covid, kernel, ops, wrappers, card) -> dict:
     return records
 
 
+# The counter draw at the benchmark cell's shape: B scenarios x P people.
+RNG_SHAPE = (256, 55_130)
+RNG_REPS = 200
+
+
+def rng_phase(rk, rng, card: str) -> dict:
+    """The counter draw's kernel (``csrc/rng.cu``) against its plain version
+    (``core/rng.py``'s int64 path, on the card) at B = 1 and at the study
+    cell's (B, P), bitwise, for the day's draw shape (seed and day (B, 1),
+    the person ids (P,)); then its device-alone time beside its bound (the
+    float32 store at 3.35 TB/s) and the plain path's."""
+    B, P = RNG_SHAPE
+    seed = torch.arange(B, dtype=torch.int64, device="cuda") * 0x9E3779B1 + 2**40 - 3
+    seed, day = seed[:, None], torch.full((B, 1), 117, dtype=torch.int64, device="cuda")
+    gpid = torch.arange(P, dtype=torch.int64, device="cuda")
+    for b in (1, B):
+        got = rk.uniform_cuda(seed[:b], rng.INFECT, day[:b], gpid)
+        if not torch.equal(got, rng.uniform_plain(seed[:b], rng.INFECT, day[:b], gpid)):
+            raise AssertionError(f"[rng] kernel differs from the int64 path at ({b}, {P})")
+    launches = rk.uniform_cuda.launches
+    device_ms, host_ms = device_host_ms(
+        lambda: rk.uniform_cuda(seed, rng.INFECT, day, gpid), RNG_REPS)
+    timed_launches = rk.uniform_cuda.launches - launches
+    if timed_launches != RNG_REPS + 1:
+        raise AssertionError("[rng] the timed calls did not each launch the kernel once")
+    plain_ms, _ = device_host_ms(lambda: rng.uniform_plain(seed, rng.INFECT, day, gpid), 20)
+    bound_ms = B * P * 4 / PEAK_BYTES_PER_S * 1e3
+    log(f"[rng] rng_uniform_kernel at ({B}, {P}), seed + 3 words: bitwise the int64 path "
+        f"(also at B = 1); device alone {device_ms:.4f} ms (bound {bound_ms:.4f} ms, the "
+        f"float32 store: {100 * bound_ms / device_ms:.1f}%), host {host_ms:.4f} ms a call; "
+        f"plain int64 path {plain_ms:.4f} ms; {card}")
+    return dict(device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                timed_launches=timed_launches)
+
+
 def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     """This slice's main path: md-mini scenario batches on the card.
 
@@ -2747,12 +2803,14 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     B = 1, 8 and 64 (ms per scenario-day, one launch a day for the batch,
     B = 8 equal to the ensemble); and the sweep CLI once. Returns the main
     path's launch counts by kernel and the last api.run result of each
-    study width, and the cores it built (phase 4f captures their runners),
-    by (label, backend) and "B=64"."""
+    study width (the draw kernel's under :data:`DRAW`: the B = 8 ensemble's
+    on pallas-compact), and the cores it built (phase 4f captures their
+    runners), by (label, backend) and "B=64"."""
     from repro_torch import api
     from repro_torch.configs import INTERVENTION_PRESETS
     from repro_torch.configs.sweep import ScenarioBatch
     from repro_torch.engine import EngineCore
+    from repro_torch.kernels.rng import kernel as rng_kernel
     from repro_torch.launch import sweep
 
     main_launches, cores = {}, {}
@@ -2770,6 +2828,8 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
                                              observables=tuple(api.OBSERVABLES))
         expect_launches(launches, kname, DAYS, f"ensemble B={B}, {backend}")
         main_launches[kname] = launches[kname]
+        if backend == "pallas-compact":
+            main_launches[DRAW] = launches[DRAW]
         if not np.array_equal(hist["edges"], hist["contacts"]):
             raise AssertionError(f"ensemble {backend}: edges != contacts")
         runs[backend] = (final, hist, dt, core)
@@ -2809,7 +2869,8 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
         c = EngineCore(pop, tti, block_size=BLOCK, device="cuda", backend=backend)
         cores[(f"TTI B={len(tti)}", backend)] = c
         final, hist, launches, dt = run_path(c, wrappers, DAYS, column=None)
-        expect_launches(launches, kname, DAYS, f"TTI ensemble, {backend}")
+        expect_launches(launches, kname, DAYS, f"TTI ensemble, {backend}",
+                        draws=DRAWS_PER_DAY + len(c.static.pa_slots))
         main_launches[kname] = launches[kname]
         if not np.array_equal(hist["edges"], hist["contacts"]) or \
                 hist["tests_used"].max() > TTI_TESTS_PER_DAY:
@@ -2830,12 +2891,13 @@ def ensemble_phase(pop, covid, epi, wrappers, card) -> tuple:
     for width, _, _, _ in STUDIES:
         spec = study_spec(width)
         torch.cuda.synchronize()
-        for w in wrappers.values():
+        for w in (*wrappers.values(), rng_kernel.uniform_cuda):
             w.launches = 0
         t0 = time.perf_counter()
         r = api.run(spec, population=pop)
         wall = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
+        launches[DRAW] = rng_kernel.uniform_cuda.launches
         expect_launches(launches, "interactions_compact", DAYS, f"api.run B={width}")
         if r.num_scenarios != width or r.history["cumulative"].shape != (DAYS, width) or \
                 not np.array_equal(r.history["edges"], r.history["contacts"]):
@@ -4206,7 +4268,9 @@ def main() -> int:
     from repro_torch.core import transmission as tx_lib
     from repro_torch.engine import EngineCore
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.core import rng
     from repro_torch.kernels.interactions import kernel, ops
+    from repro_torch.kernels.rng import kernel as rng_kernel
 
     card = card_line()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -4218,10 +4282,10 @@ def main() -> int:
     # ---- phase 2: build (one nvcc per source, all started together) --------
     stamp("build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = {m: pool.submit(m.build) for m in (kernel, flash_kernel)}
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = {m: pool.submit(m.build) for m in (kernel, flash_kernel, rng_kernel)}
         built = {m: f.result() for m, f in futures.items()}
-    log(f"[build] both sources in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] the three sources in {time.perf_counter() - t0:.2f} s")
     for m, (lib, _) in built.items():
         log(f"[build] {os.path.relpath(m.SOURCE, ROOT)} -> {os.path.relpath(lib, ROOT)}")
     ptxas = built[kernel][1]
@@ -4235,6 +4299,12 @@ def main() -> int:
         elif inst and ("registers" in line or "spill" in line):
             log(f"[build] interactions_kernel<{inst}>: {line.strip()}")
     log_flash_build(built[flash_kernel][1], flash_kernel)
+    seen = False
+    for line in built[rng_kernel][1].splitlines():
+        if "entry function" in line:
+            seen = "rng_uniform_kernel" in line
+        elif seen and ("registers" in line or "spill" in line):
+            log(f"[build] rng_uniform_kernel: {line.strip()}")
 
     # ---- phase 3: kernels against their plain versions ----------------------
     stamp("interaction kernels")
@@ -4256,6 +4326,10 @@ def main() -> int:
     # ---- phase 3b: the kernels with the scenario axis -----------------------
     stamp("batched interaction kernels")
     batched = batched_kernel_phase(core, covid, kernel, ops, wrappers, card)
+
+    # ---- phase 3c: the counter draw ----------------------------------------
+    stamp("counter draw")
+    rng_rec = rng_phase(rng_kernel, rng, card)
 
     # ---- phase 4: the main path -------------------------------------------
     stamp("main path")
@@ -4301,7 +4375,8 @@ def main() -> int:
         final, hist, launches, dt = run_path(c, wrappers, DAYS)
         traced = "interactions_compact_traced" if backend == "pallas-compact" \
             else "interactions_padded_traced"
-        expect_launches(launches, traced, DAYS, f"TTI path, {backend}")
+        expect_launches(launches, traced, DAYS, f"TTI path, {backend}",
+                        draws=DRAWS_PER_DAY + len(c.static.pa_slots))
         if not np.array_equal(hist["edges"], hist["contacts"]):
             raise AssertionError(f"TTI {backend}: edges != contacts on some day")
         if hist["tests_used"].max() > TTI_TESTS_PER_DAY:
@@ -4452,6 +4527,14 @@ def main() -> int:
         "shard_launches": shard["launches"],
         "roofline_launches": tooling["launches"],
         **flash_rec,
+    })
+    line.append({
+        "name": "rng_uniform",
+        "route": "cuda",
+        "source": os.path.relpath(rng_kernel.SOURCE, ROOT),
+        "replaces": None,
+        "launches": main_launches[DRAW],
+        **rng_rec,
     })
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

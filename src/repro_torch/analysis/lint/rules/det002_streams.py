@@ -19,6 +19,7 @@ from repro_torch.analysis.lint.engine import parse_stream_registry
 #: draw function -> index of the stream argument (first of ``*words``).
 _DRAW_STREAM_ARG = {
     "uniform": 1,
+    "uniform_plain": 1,
     "np_uniform": 1,
     "hash_u32": 1,
     "exponential": 2,  # (mean, seed, stream, ...)

@@ -8,8 +8,14 @@ layouts and replays, and bitwise identical to the reference package's
 Representation: ``torch.uint32`` lacks basic CPU ops, so a u32 word is
 carried in an int64 tensor holding a value in ``[0, 2**32)``. Every multiply
 is split into 16-bit halves so no intermediate leaves int64's range, and
-every add or multiply is masked back to 32 bits. The CUDA interaction kernel
-(``csrc/interactions_compact.cu``) runs the same hash on native ``unsigned``.
+every add or multiply is masked back to 32 bits. On the card, :func:`uniform`
+does not run that chain: a draw on CUDA tensors is one launch of the
+hand-written kernel of ``csrc/rng.cu`` (``kernels/rng/kernel.py``), which
+folds the words on native ``unsigned`` lanes and writes only the float32
+draw. Its plain version is :func:`uniform_plain`, the int64 path, which the
+CPU runs and the tests hold the kernel to, bit for bit; :func:`hash_u32`
+keeps the int64 path on every device. The CUDA interaction kernel
+(``csrc/interactions.cu``) runs the same hash on native ``unsigned`` too.
 
 Streams (documented constants, one per random decision in the simulator):
   CONTACT      per (pid_i, pid_j, day): did a co-occupant pair make contact?
@@ -25,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.rng import kernel as rng_kernel
 from repro_torch.runtime import spans
 
 # Stream ids — keep stable; they are part of the reproducibility contract.
@@ -86,7 +93,17 @@ def uniform(seed, *words):
     """U(0,1) float32 from the hash; never exactly 0 (safe for log).
 
     Top 24 bits -> [0, 1) with 2^-24 resolution, then offset by 2^-25, every
-    step in float32 as the reference does it."""
+    step in float32 as the reference does it. Where a word is a CUDA tensor,
+    one launch of the kernel (``kernels/rng/kernel.py:uniform_cuda``), which
+    raises on what it does not take; elsewhere :func:`uniform_plain`."""
+    if any(isinstance(x, torch.Tensor) and x.is_cuda for x in (seed, *words)):
+        with spans.span("rng.hash"):
+            return rng_kernel.uniform_cuda(seed, *words)
+    return uniform_plain(seed, *words)
+
+
+def uniform_plain(seed, *words):
+    """:func:`uniform` on int64 carriers: the kernel's plain version."""
     h = hash_u32(seed, *words)
     return (h >> 8).to(torch.float32) * (2.0**-24) + (2.0**-25)
 

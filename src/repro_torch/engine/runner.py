@@ -32,8 +32,9 @@ intervention numerics) is a tensor of ``SimParams``/``SimState``, so a
 replay of a later chunk equals its eager run
 (``tests/test_torch_gpu.py::test_captured_runner_equals_eager_run_days``).
 
-The interaction-kernel wrappers count their launches in Python, which runs
-at capture and not at replay. So a capture's launches are taken off the
+The kernel wrappers (:data:`COUNTED`: the interaction kernels' and the
+counter draw's) count their launches in Python, which runs at capture and
+not at replay. So a capture's launches are taken off the
 counters again (the capture ran nothing), and each replay adds them back:
 the counts keep meaning kernels that ran, replayed days included.
 
@@ -51,6 +52,10 @@ import time
 import torch
 
 from repro_torch.kernels.interactions import kernel as interactions
+from repro_torch.kernels.rng import kernel as rng_kernel
+
+#: The wrappers whose ``launches`` a replay adds to.
+COUNTED = (*interactions.WRAPPERS, rng_kernel.uniform_cuda)
 
 
 def flatten(tree):
@@ -100,7 +105,7 @@ def signature(structure, leaves) -> tuple:
 
 
 def _launch_counts() -> dict:
-    return {w: w.launches for w in interactions.WRAPPERS}
+    return {w: w.launches for w in COUNTED}
 
 
 class CapturedDays:
@@ -111,8 +116,8 @@ class CapturedDays:
     first blocks), then capturing it. ``capture_s`` is the whole build's
     wall time, ``pool_bytes`` the memory the graph's private pool reserved
     (the day loop's temporaries and the static outputs), ``input_bytes``
-    the static inputs', ``launches`` the interaction-kernel launches one
-    replay makes, by wrapper."""
+    the static inputs', ``launches`` the kernel launches one replay makes,
+    by wrapper (:data:`COUNTED`)."""
 
     def __init__(self, fn, structure, leaves):
         t0 = time.perf_counter()

@@ -2,7 +2,9 @@
 their plain versions and each other, one scenario or a batch in one launch,
 the launch counters, the wrappers' input checks, and the main path, the TTI
 path and a scenario ensemble launching their kernel once a day without a
-host sync; checkpointed studies resumed and recovered bitwise, launches
+host sync; the counter draw's kernel bitwise its int64 plain version (day,
+TTI and contact shapes, a captured graph, four launches an eager day);
+checkpointed studies resumed and recovered bitwise, launches
 counting the replayed days, and the invariant guards on a card state equal
 to those on its CPU copy; the flash-attention kernel against its
 plain version, its wrapper's checks, and a prefill launching it once per
@@ -28,12 +30,13 @@ import torch
 
 from repro_torch.configs import ARCHS, INTERVENTION_PRESETS, get_epidemic, reduced_config
 from repro_torch.core import contact as contact_lib
-from repro_torch.core import disease, transmission
+from repro_torch.core import disease, rng, transmission
 from repro_torch.core import population as pop_lib
 from repro_torch.engine import EngineCore
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as f_kernel
 from repro_torch.kernels.interactions import kernel as t_kernel
+from repro_torch.kernels.rng import kernel as rng_kernel
 from repro_torch.models import model as t_model
 from repro_torch.kernels.interactions import ops as t_ops
 
@@ -432,6 +435,119 @@ def test_ensemble_launches_once_a_day_for_the_batch(cuda):
         assert torch.equal(one[..., 0], hist[..., i]), scen.name
 
 
+# The counter draw (csrc/rng.cu): rng.uniform on CUDA tensors is one launch of
+# the kernel, bitwise its plain version, core/rng.py's int64 path, here run
+# on the card too.
+
+EDGE_WORDS = (0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1, -1, -2**31, -2**63, 2**63 - 1)
+DAY_PEOPLE = 55_130  # the benchmark cell's people
+
+
+def _carriers(rs, *shape):
+    """Random int64 carriers over the whole int64 range (negative ones too:
+    the kernel reads the low 32 bits), the edge words first."""
+    w = rs.integers(-2**63, 2**63 - 1, size=shape, dtype=np.int64, endpoint=True)
+    flat = w.reshape(-1)
+    n = min(len(EDGE_WORDS), flat.size)
+    flat[:n] = EDGE_WORDS[:n]
+    return torch.as_tensor(w)
+
+
+def _draw_case(name, device):
+    """(seed, *words) of one draw, on ``device``."""
+    rs = np.random.default_rng(sum(map(ord, name)))
+    gpid = torch.arange(DAY_PEOPLE, dtype=torch.int64)
+    if name == "edge_words":
+        inputs = (_carriers(rs, len(EDGE_WORDS), 1), rng.INFECT, *(_carriers(rs, 20_000)
+                                                                 for _ in range(3)))
+    elif name in ("day_b1", "day_b256"):
+        B = 1 if name == "day_b1" else 256
+        inputs = (_carriers(rs, B, 1), rng.INFECT, _carriers(rs, B, 1), gpid)
+    elif name == "test_slot":  # engine/day.py's TEST draw: seed and four words
+        inputs = (_carriers(rs, 256, 1), rng.TEST, _carriers(rs, 256, 1), 1, gpid)
+    elif name == "contact_tiles":  # interactions/ref.py: seed and five words
+        pid_r, pid_c = _carriers(rs, 128, 128, 1), _carriers(rs, 128, 1, 128)
+        inputs = (_carriers(rs), rng.CONTACT, _carriers(rs), torch.minimum(pid_r, pid_c),
+                  torch.maximum(pid_r, pid_c), _carriers(rs, 128, 128, 1))
+    elif name == "int32_strided":
+        # int32 words are cast as the plain version casts them; int64 views
+        # reach the kernel with their strides
+        inputs = (_carriers(rs, 256, 2).to(torch.int32)[:, 1:], rng.DWELL,
+                  _carriers(rs, 1, 256).t(), _carriers(rs, 3 * DAY_PEOPLE)[::3])
+    elif name == "python_seed":
+        inputs = (2**32 - 1, rng.SEED_CHOICE, -5, _carriers(rs, 7, 1000))
+    return tuple(x.to(device) if isinstance(x, torch.Tensor) else x for x in inputs)
+
+
+DRAWS = ("edge_words", "day_b1", "day_b256", "test_slot", "contact_tiles",
+         "int32_strided", "python_seed")
+
+
+@pytest.mark.parametrize("name", DRAWS)
+def test_rng_kernel_bitwise_equals_plain(cuda, name):
+    inputs = _draw_case(name, cuda)
+    want = rng.uniform_plain(*inputs)
+    before = rng_kernel.uniform_cuda.launches
+    got = rng.uniform(*inputs)
+    torch.cuda.synchronize()
+    assert rng_kernel.uniform_cuda.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    cpu = rng.uniform_plain(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                              for x in inputs))
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_rng_kernel_in_a_captured_graph(cuda):
+    """A draw captured into a CUDA graph: each replay reads the static
+    inputs as they are then, bitwise the plain version."""
+    seed, _, day, gpid = _draw_case("day_b256", cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rng.uniform(seed, rng.INFECT, day, gpid)  # the library's build and load
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rng.uniform(seed, rng.INFECT, day, gpid)
+    for step in range(3):
+        seed.add_(step + 1)
+        day.add_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, rng.uniform_plain(seed, rng.INFECT, day, gpid))
+
+
+def test_rng_wrapper_refuses_outside_its_envelope(cuda):
+    w = torch.zeros((2,), dtype=torch.int64, device=cuda)
+    before = rng_kernel.uniform_cuda.launches
+    with pytest.raises(ValueError, match="rank"):
+        rng.uniform(w.view(1, 1, 1, 1, 2), rng.INFECT)
+    with pytest.raises(ValueError, match="words"):
+        rng.uniform(w, rng.INFECT, 1, 2, 3, 4, 5, 6)
+    with pytest.raises(ValueError, match="device"):
+        rng.uniform(w, rng.INFECT, w.cpu())
+    assert rng_kernel.uniform_cuda.launches == before
+
+
+def test_main_path_day_launches_the_draws_without_sync(cuda):
+    """One eager day without per-agent slots: four draws (infection,
+    seeding, transition, dwell), each one launch, no host sync."""
+    pop = get_epidemic("twin-2k").build()
+    core = EngineCore.single(pop, disease.covid_model(),
+                             transmission.TransmissionModel(tau=2e-5), device=cuda)
+    state = core.init_state()
+    core.run_days(1, state=state)  # the library's build and load
+    torch.cuda.synchronize()
+    before = rng_kernel.uniform_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        core.run_days(1, state=state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rng_kernel.uniform_cuda.launches == before + 4
+
+
 # Flash attention: the kernel and its plain version run the same float32
 # arithmetic in another order (float32 |d| <= 1e-5 + 1e-5|x|); a bfloat16
 # output may round to the neighbouring bfloat16 (|d| <= 2e-2 + 1e-2|x|).
@@ -678,7 +794,8 @@ def test_captured_runner_equals_eager_run_days(cuda, backend, preset):
     state, _, first, _ = runner(core.params, state)  # the capture
     (build,) = runner.builds()
     assert isinstance(build, CapturedDays) and build.pool_bytes > 0
-    assert build.launches == {WRAPPERS[kernel]: 4}
+    draws = 4 + len(core.static.pa_slots)  # per day: four, and TTI's TEST per slot
+    assert build.launches == {WRAPPERS[kernel]: 4, rng_kernel.uniform_cuda: 4 * draws}
     hists = [first]
     torch.cuda.synchronize()
     for w in WRAPPERS.values():
